@@ -1,7 +1,8 @@
 """Full benchmark suite over BASELINE.md's measurement configs.
 
-Reports trajectories*steps/sec/chip and median time-to-solution, writes
-benchmarks/results.json + a markdown table. Run on the real TPU:
+Reports trajectories*steps/sec and median time-to-solution and writes
+benchmarks/results.json (gitignored), labelled with the device. Runs
+only on a GPU:
 
     python benchmarks/run_benchmarks.py [--quick]
 
@@ -10,15 +11,13 @@ Configs (BASELINE.md):
   2. small.cnf, batch b=100 fixed step (vmapped restarts)
   3. hard.cnf, adaptive step + tolerance
   4. random 3-SAT n=1k m/n=4.3, ratio-7 preprocessing, 10k interlaced
-     trajectories per chip
-  5. uf250-class instance, trajectory batch (clause sharding needs >1 chip;
-     exercised in tests/test_sharding.py on the CPU mesh)
-  6. locally-structured n=4096 (windowed streaming layout)
-  7. SAT-competition-scale n=10240 through the clause-sharded streaming
-     RHS kernel (S=1 on the single chip; S>1 parity on the CPU mesh in
-     tests/test_shard_stream.py)
+     trajectories per device
+  5. uf250-class instance, trajectory batch (clause sharding needs >1
+     device; exercised in tests/test_sharding.py on the CPU mesh)
+  6. locally-structured n=4096
+  7. SAT-competition-scale n=10240 on the scan path
 
-SATLIB substitution note (explicit, per round-1 VERDICT): this
+SATLIB substitution note: this
 environment has no network egress, so the *named* SATLIB uf250 files
 cannot be fetched. Config 5 uses generated instances of the same
 construction — uniform random 3-SAT at n=250, m=1065 (ratio 4.26) —
@@ -26,9 +25,7 @@ with a planted satisfying assignment so every instance is certainly
 SAT. SATLIB's originals are *filtered* SAT (unplanted, SAT-verified);
 planted instances at the phase-transition ratio are statistically close
 but not identical (planting mildly biases clause polarities around the
-hidden assignment). The unplanted stress run in RESULTS.md ("unplanted
-phase-transition uf250") covers the filtered regime: generated unplanted
-instances, solving only those that are actually SAT.
+hidden assignment).
 """
 
 from __future__ import annotations
@@ -76,7 +73,17 @@ def main():
     args = parser.parse_args()
     q = args.quick
 
-    results = {"device": str(jax.devices()[0]), "configs": {}}
+    device = jax.devices()[0]
+    if device.platform != "gpu":
+        raise SystemExit(f"the benchmark suite measures the GPU; JAX found {device.platform!r}")
+    results = {
+        "device": {
+            "platform": device.platform,
+            "kind": device.device_kind,
+            "count": len(jax.devices()),
+        },
+        "configs": {},
+    }
 
     # --- config 1: easy.cnf single trajectory fixed step -------------------
     formula = parse_dimacs_file(os.path.join(DATA, "easy.cnf"))
@@ -131,14 +138,14 @@ def main():
     formula = parse_dimacs_file(os.path.join(DATA, "hard.cnf"))
     _, normalized = normalize_cnf_variables(formula)
     fa = compile_formula(normalized)
-    ode = ODEConfig(matmul_dtype="bfloat16")  # adaptive, tol 1e-3
+    ode = ODEConfig()  # adaptive, tol 1e-3
     results["configs"]["hard_adaptive"] = {
         "traj_steps_per_sec": throughput(
             fa, ode, batch=2048 if q else 8192, chunk=200 if q else 2000
         ),
         "note": "adaptive = 2 RHS evals + 3 updates per step",
     }
-    ode_fixed = ODEConfig(step_size=0.01, matmul_dtype="bfloat16")
+    ode_fixed = ODEConfig(step_size=0.01)
     results["configs"]["hard_fixed"] = {
         "traj_steps_per_sec": throughput(
             fa, ode_fixed, batch=4096 if q else 16384, chunk=500 if q else 4000
@@ -149,7 +156,7 @@ def main():
     # done-flag pulls + chunk escalation; what a real solve delivers) ----
     cfg_eff = SolverConfig(
         ode=ODEConfig(step_size=0.01, steps=10240 if q else 40960,
-                      matmul_dtype="bfloat16"),
+                      ),
         batch_size=4096 if q else 16384,
         seed=0,
         chunk_steps=256,
@@ -170,7 +177,7 @@ def main():
     prep_s = time.perf_counter() - t0
     _, normalized = normalize_cnf_variables(reduced)
     fa = compile_formula(normalized, bucket=True)  # VE emits mixed widths
-    ode = ODEConfig(step_size=0.01, matmul_dtype="bfloat16")  # auto -> stream kernel
+    ode = ODEConfig(step_size=0.01)
     results["configs"]["random3sat_n1k_inter10k"] = {
         "preprocess_s": prep_s,
         "reduced_clauses": reduced.num_clauses,
@@ -180,43 +187,6 @@ def main():
         ),
     }
 
-    # --- config 4b: stochastic engine on the same large instance ----------
-    from odesat_tpu.models.stoch import init_stoch_state
-    from odesat_tpu.ops.stoch_pallas import make_stream_stoch_chunk
-    from odesat_tpu.utils.timing import measure_throughput
-
-    sb = 2048 if q else 8192
-    schunk = 100 if q else 200
-    sstate = init_stoch_state(fa, sb, jax.random.PRNGKey(0))
-    sfn = jax.jit(make_stream_stoch_chunk(fa, schunk, matmul_dtype="bfloat16"))
-    srunner = lambda st, dev=None: sfn(st)  # noqa: E731
-    srunner(sstate).done.block_until_ready()
-    srate, _ = measure_throughput(srunner, sstate, None, schunk, sb, iters=3)
-    results["configs"]["stoch_random3sat_n1k_stream"] = {
-        "chain_steps_per_sec": srate,
-        "note": "streaming kernel; the scan path tops out ~1.2e5 and OOMs past B=2048",
-    }
-
-    # --- config 4c: stochastic engine, resident fused kernel (aim100) -----
-    from odesat_tpu.ops.stoch_pallas import make_fused_stoch_chunk
-
-    formula_h = parse_dimacs_file(os.path.join(DATA, "hard.cnf"))
-    _, normalized_h = normalize_cnf_variables(formula_h)
-    fa_h = compile_formula(normalized_h)
-    sb2 = 4096 if q else 16384
-    schunk2 = 200 if q else 2000
-    sfn2 = make_fused_stoch_chunk(fa_h, schunk2, matmul_dtype="bfloat16")
-    from odesat_tpu.models.stoch import init_stoch_state as _iss
-    from odesat_tpu.utils.timing import measure_throughput as _mt4c
-
-    sstate2 = _iss(fa_h, sb2, jax.random.PRNGKey(0))
-    srunner2 = lambda st, dev=None: sfn2(st)  # noqa: E731
-    srate2, _ = _mt4c(srunner2, sstate2, None, schunk2, sb2, iters=3)
-    results["configs"]["stoch_aim100_fused"] = {
-        "chain_steps_per_sec": srate2,
-        "note": "resident fused kernel, concatenated-plane matmuls",
-    }
-
     # --- config 5: uf250-class --------------------------------------------
     formula = random_ksat(250, 1065, k=3, seed=11, planted=True)
     _, normalized = normalize_cnf_variables(formula)
@@ -224,7 +194,7 @@ def main():
     results["configs"]["uf250_fixed"] = {
         "traj_steps_per_sec": throughput(
             fa,
-            ODEConfig(step_size=0.01, matmul_dtype="bfloat16"),
+            ODEConfig(step_size=0.01),
             batch=4096 if q else 16384,
             chunk=200 if q else 2000,
         ),
@@ -232,15 +202,14 @@ def main():
 
     # --- config 5b: uf250 time-to-solution (north-star metric) ------------
     # Load-robust protocol, same odesat_tpu.utils.tts implementation as
-    # tools/uf250_tts.py (round-3 VERDICT items 3+5: exact sub-chunk
-    # steps-to-solution via final-chunk bisection, ONE protocol so
-    # results.json and RESULTS.md agree).
+    # tools/uf250_tts.py (exact sub-chunk steps-to-solution via
+    # final-chunk bisection; one protocol, so both report alike).
     from odesat_tpu.utils.generate import uf_instance
 
     b_tts = 1024 if q else 4096
     inst0 = uf_instance(250, seed=0)
     _, norm0 = normalize_cnf_variables(inst0)
-    ode_tts = ODEConfig(step_size=0.01, matmul_dtype="bfloat16")
+    ode_tts = ODEConfig(step_size=0.01)
     rate_tts = throughput(
         compile_formula(norm0), ode_tts, batch=b_tts, chunk=200 if q else 2000
     )
@@ -270,147 +239,29 @@ def main():
         "wall - compute - dispatch = host/load noise (see tools/uf250_tts.py)",
     }
 
-    # --- config 6: locally-structured n=4096 (windowed streaming) ---------
+    # --- config 6: locally-structured n=4096 --------------------------------
     from odesat_tpu.utils.generate import random_local_ksat
 
     formula = random_local_ksat(4096, 17203, k=3, locality=256, seed=3)
     _, normalized = normalize_cnf_variables(formula)
-    fa = compile_formula(normalized, window_sort=True)
-    results["configs"]["local3sat_n4096_windowed"] = {
+    fa = compile_formula(normalized)
+    results["configs"]["local3sat_n4096"] = {
         "traj_steps_per_sec": throughput(
             fa,
-            ODEConfig(step_size=0.01, matmul_dtype="bfloat16"),
+            ODEConfig(step_size=0.01),
             batch=2048 if q else 10240,
             chunk=100 if q else 200,
         ),
-        "note": "window-sorted clause layout: 10.4x fewer plane rows than unsorted",
     }
 
-    # --- config 7: SAT-competition-scale n=10240 via the clause-sharded
-    # streaming RHS (S=1 on this chip; the kernel is the one a clause
-    # mesh runs per shard, so this rate is the per-shard building block
-    # of multi-chip scaling) --------------------------------------------
-    from odesat_tpu.ops.shard_stream import (
-        compile_stream_sharded,
-        make_single_device_runner,
-        stream_shard_supported,
-    )
-    from odesat_tpu.utils.timing import measure_throughput as _mt
-
+    # --- config 7: SAT-competition-scale n=10240 (scan path) ------------
     formula = random_local_ksat(10240, 43700, k=3, locality=512, seed=9)
     _, normalized = normalize_cnf_variables(formula)
-    ode7 = ODEConfig(step_size=0.01, matmul_dtype="bfloat16")
-    fa7, plan7 = compile_stream_sharded(normalized, 1)
-    assert stream_shard_supported(fa7, plan7, 2)
-    dev7 = formula_device(fa7, matmul_dtype="bfloat16")
-    chunk7 = 50 if q else 100
-    runner7 = make_single_device_runner(fa7, 0.001, ode7, chunk7)
-    b7 = 256 if q else 1024
-    st7 = init_state(fa7, b7, jax.random.PRNGKey(0), ode7)
-    rate7, _ = _mt(runner7, st7, dev7, chunk7, b7, iters=3)
-    results["configs"]["local3sat_n10240_shard_rhs"] = {
-        "traj_steps_per_sec": rate7,
-        "note": "clause-shard per-step launch path at S=1; per-shard rate of the multi-chip path",
-    }
-
-    # --- config 7b: same instance through the whole-chunk clause-shard
-    # kernel (in-kernel all-reduce; degenerate at S=1 — ops/shard_chunk.py)
-    from odesat_tpu.models.ode import ODEState
-    from odesat_tpu.ops.shard_chunk import make_shard_chunk_call
-
-    call7 = make_shard_chunk_call(fa7, 0.001, ode7, chunk7)
-
-    def chunk7_runner(st, dv):
-        v, xs, xl, dt2, done = call7(
-            st.v, st.xs, st.xl, st.dt, st.done,
-            dv.planes[0], dv.span_lo[0], dv.span_bias[0], dv.clause_mask,
-        )
-        return ODEState(v, xs, xl, dt2, done)
-
-    jit7 = jax.jit(chunk7_runner, donate_argnums=0)
-    st7b = init_state(fa7, b7, jax.random.PRNGKey(0), ode7)
-    rate7b, _ = _mt(jit7, st7b, dev7, chunk7, b7, iters=3)
-    results["configs"]["local3sat_n10240_shard_chunk"] = {
-        "traj_steps_per_sec": rate7b,
-        "note": "whole-chunk clause-shard kernel (--shard-chunk) at S=1",
-    }
-
-    # --- config 7c: stochastic engine on the same instance via the
-    # per-shard stoch kernel (ops/stoch_pallas.make_stoch_shard_eval) —
-    # the clause-mesh stoch path's per-shard building block at S=1
-    import jax.numpy as jnp
-
-    from odesat_tpu.models.stoch import StochState, init_stoch_state
-    from odesat_tpu.ops.stoch_pallas import (
-        make_stoch_shard_eval,
-        stoch_shard_arrays,
-    )
-
-    ev7 = make_stoch_shard_eval(fa7, matmul_dtype="bfloat16")
-    sb7, ns7 = stoch_shard_arrays(fa7)
-    sargs7 = (
-        jnp.asarray(plan7.planes[0]),
-        jnp.asarray(plan7.lo[0]),
-        jnp.asarray(sb7[0]),
-        jnp.asarray(ns7[0]),
-        jnp.asarray(fa7.clause_mask),
-    )
-
-    def stoch7_step(state, args):
-        planes, lo, sbias, nsign, cmask = args
-        key, sub = jax.random.split(state.key)
-        active = ~state.done
-        tot, uns, xl_new, sat_all = ev7(
-            state.v.astype(jnp.float32), state.xl.astype(jnp.float32),
-            active, planes, lo, sbias, nsign, cmask,
-        )
-        u = jax.random.uniform(sub, tot.shape, dtype=jnp.float32)
-        flip = u * tot < uns
-        v = jnp.where(active[:, None] & flip, ~state.v, state.v)
-        return StochState(v, xl_new.astype(jnp.int32), state.done | sat_all, key)
-
-    def stoch7_chunk(state, args):
-        def body(c, _):
-            return stoch7_step(c, args), None
-
-        out, _ = jax.lax.scan(body, state, None, length=chunk7)
-        return out
-
-    sjit7 = jax.jit(stoch7_chunk, donate_argnums=0)
-    sst7 = init_stoch_state(fa7, b7, jax.random.PRNGKey(0))
-    srate7, _ = _mt(sjit7, sst7, sargs7, chunk7, b7, iters=3)
-    results["configs"]["local3sat_n10240_shard_stoch"] = {
-        "chain_steps_per_sec": srate7,
-        "note": "per-shard stoch kernel at S=1 (clause-mesh stoch path building block)",
-    }
-
-    # --- config 7d: stochastic engine through the whole-chunk clause-shard
-    # kernel (in-kernel weight-sum all-reduce; degenerate at S=1) — the
-    # one-launch-per-chunk counterpart of 7c's one-launch-per-step path
-    from odesat_tpu.ops.stoch_pallas import (
-        make_stoch_shard_chunk,
-        stoch_shard_chunk_supported,
-    )
-
-    assert stoch_shard_chunk_supported(fa7, 2)
-    ch7 = make_stoch_shard_chunk(fa7, chunk7, matmul_dtype="bfloat16")
-
-    def stoch7d_runner(state, args):
-        planes, lo, sbias, nsign, cmask = args
-        key, sub = jax.random.split(state.key)
-        seed = jax.random.randint(sub, (1,), 0, 2**31 - 1, dtype=jnp.int32)
-        v, xl, done = ch7(
-            state.v.astype(jnp.float32), state.xl.astype(jnp.float32),
-            state.done, seed, planes, lo, sbias, nsign, cmask,
-        )
-        return StochState(v > 0.5, xl.astype(jnp.int32), done, key)
-
-    djit7 = jax.jit(stoch7d_runner, donate_argnums=0)
-    dst7 = init_stoch_state(fa7, b7, jax.random.PRNGKey(0))
-    drate7, _ = _mt(djit7, dst7, sargs7, chunk7, b7, iters=3)
-    results["configs"]["local3sat_n10240_shard_stoch_chunk"] = {
-        "chain_steps_per_sec": drate7,
-        "note": "whole-chunk clause-shard stoch kernel (--shard-chunk) at S=1",
+    fa = compile_formula(normalized)
+    results["configs"]["local3sat_n10240"] = {
+        "traj_steps_per_sec": throughput(
+            fa, ODEConfig(step_size=0.01), batch=256 if q else 1024, chunk=100
+        ),
     }
 
     out = os.path.join(HERE, "results.json")

@@ -1,8 +1,9 @@
 """dv-accumulation strategy shootout (SURVEY.md §7 hard-part #2).
 
-Benchmarks gather vs segment_sum vs onehot (vs pallas once available)
-across formula sizes, on the current device. The winner feeds the
-default in ODEConfig/bench.py.
+Benchmarks the scan accumulators (gather, segment_sum, onehot) against
+the fused kernel across formula sizes on the GPU; the results show where
+``dv_strategy="auto"`` (ops/select.py) should switch. Writes
+benchmarks/strategy_results.json (gitignored), labelled with the device.
 
     python benchmarks/strategy_bench.py
 """
@@ -29,7 +30,7 @@ SIZES = [
     ("n1k", 1000, 4300),
     ("n4k", 4000, 17200),
 ]
-STRATEGIES = ["gather", "segment_sum", "onehot", "pallas", "fused", "stream"]
+STRATEGIES = ["gather", "segment_sum", "onehot", "fused"]
 
 
 def rate(fa, ode, batch, chunk=500, repeats=3):
@@ -44,7 +45,10 @@ def rate(fa, ode, batch, chunk=500, repeats=3):
 
 
 def main():
-    results = {}
+    device = jax.devices()[0]
+    if device.platform != "gpu":
+        raise SystemExit(f"strategy_bench measures the GPU; JAX found {device.platform!r}")
+    results = {"device": {"platform": device.platform, "kind": device.device_kind}}
     for name, n, m in SIZES:
         formula = random_ksat(n, m, k=3, seed=1)
         _, normalized = normalize_cnf_variables(formula)
@@ -53,9 +57,7 @@ def main():
         row = {"batch": batch}
         for strategy in STRATEGIES:
             try:
-                ode = ODEConfig(
-                    step_size=0.01, dv_strategy=strategy, matmul_dtype="bfloat16"
-                )
+                ode = ODEConfig(step_size=0.01, dv_strategy=strategy)
                 row[strategy] = round(rate(fa, ode, batch), 1)
             except Exception as e:  # noqa: BLE001 — report and continue
                 row[strategy] = f"error: {type(e).__name__}: {e}"[:120]

@@ -26,7 +26,7 @@ var_mapping, normalized = ot.normalize_cnf_variables(reduced)
 print(f"{formula.num_clauses} clauses / {formula.varnum} vars "
       f"-> {reduced.num_clauses} / {reduced.varnum} after preprocessing")
 
-# 2. batched ODE solve (auto-selects the fused Pallas kernel on TPU)
+# 2. batched ODE solve (auto-selects the fused Pallas kernel on a GPU)
 config = ot.SolverConfig(
     ode=ot.ODEConfig(steps=20_000),  # adaptive step, tolerance 1e-3
     batch_size=1024,
@@ -60,10 +60,8 @@ if len(jax.devices()) > 1:
         seed=2), mesh=mesh)
     print("sharded stoch:", s.solved_index is not None)
 
-    # huge CNFs: put devices on the clause axis instead — compile_for_mesh
-    # lays the clause arrays out as identically-shaped shard segments and
-    # the step runs the clause-sharded streaming kernel with dv psum'd
-    # over ICI (ops/shard_stream.py)
+    # huge CNFs: put devices on the clause axis instead — the clause
+    # arrays shard across devices and the scan step psums dv over them
     if len(jax.devices()) % 2 == 0:
         mesh2 = make_mesh(len(jax.devices()) // 2, 2)
         result = ot.simulate_batch(normalized, config, mesh=mesh2)

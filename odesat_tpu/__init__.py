@@ -1,4 +1,4 @@
-"""odesat_tpu — a TPU-native continuous-time SAT solver framework.
+"""odesat_tpu — a continuous-time SAT solver framework for GPUs, in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
 Rust solver `odesat` (Bearden, Pei & Di Ventra, "Efficient Solution of
@@ -7,7 +7,7 @@ arXiv:2011.06551): a CNF formula is compiled to dense padded incidence
 arrays, mapped to a dissipative ODE over variable values plus per-clause
 short/long-term memories, and integrated with fixed or adaptive forward
 Euler until every clause's analog satisfaction degree crosses a threshold.
-Thousands of independent trajectories run vmapped per chip and shard over
+Thousands of independent trajectories run vmapped per device and shard over
 a device mesh; for huge CNFs the clause axis is sharded with psum
 reductions of per-variable gradient contributions.
 

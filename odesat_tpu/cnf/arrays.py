@@ -1,16 +1,16 @@
 """Formula → padded incidence arrays: the device representation.
 
-This is the TPU-first replacement for the reference's array-of-struct
-clause walk (reference: src/system.rs:35-90 iterates heap-allocated
-literal lists per clause). Here a formula is compiled **once** on the host
-into dense, statically-shaped arrays laid out for the TPU's (sublane,
-lane) tiling:
+This replaces the reference's array-of-struct clause walk (reference:
+src/system.rs:35-90 iterates heap-allocated literal lists per clause).
+Here a formula is compiled **once** on the host into dense,
+statically-shaped arrays:
 
-* clause axis **last** (lanes, padded to a multiple of 128),
-* literal-slot axis first (sublanes, K = max clause width),
+* clause axis **last** (contiguous, padded to a multiple of 128),
+* literal-slot axis first (K = max clause width),
 
-so per-clause reductions (top-2 min over literals) are cheap sublane
-reductions and all per-literal elementwise math is lane-parallel.
+so per-clause reductions (top-2 min over literals) reduce over a short
+leading axis and all per-literal elementwise math runs along contiguous
+memory.
 
 Two incidence encodings are produced:
 
@@ -18,8 +18,8 @@ Two incidence encodings are produced:
   variable values and compute per-literal clause terms;
 * ``var_occ/occ_mask       : (N, D)`` — variable-major (transposed
   incidence, D = max occurrences); used to accumulate per-variable
-  derivative contributions as a **gather + sum** instead of a scatter,
-  which TPUs execute far faster (SURVEY.md §7 hard-part #2).
+  derivative contributions as a **gather + sum** instead of a scatter
+  (deterministic, no atomics; SURVEY.md §7 hard-part #2).
 
 Padded literal slots carry ``sign == 0`` and point at variable 0; padded
 clause rows are masked out of the satisfaction flag and memory dynamics.
@@ -68,10 +68,6 @@ class FormulaArrays:
     # Single full-width bucket when bucketing is off.
     bucket_slices: tuple = ()
     n_slots: int = 0  # total flattened contribution slots sum(K_b * M_b)
-    # set by ops/shard_stream.compile_stream_sharded: the shard-uniform
-    # plane layout for the clause-sharded streaming kernel. None for
-    # ordinary compiles; the arrays above are valid either way.
-    shard_plan: object = None
 
     def __repr__(self) -> str:  # compact — the arrays are large
         return (
@@ -105,11 +101,10 @@ def _make_buckets(widths, min_bucket: int):
 def slot_clause_map(fa: "FormulaArrays") -> np.ndarray:
     """Map each flat contribution slot — the layout ``var_occ`` indexes:
     concatenated per-bucket ``(K_b, M_b)`` blocks (see the occurrence
-    construction in :func:`compile_formula` and
-    ops/shard_stream.compile_stream_sharded) — to its clause column.
+    construction in :func:`compile_formula`) — to its clause column.
     ``slot_clause_map(fa)[fa.var_occ]`` therefore gives, per variable
     occurrence, the clause that occurrence lives in, valid for every
-    layout (single-bucket, width-bucketed, clause-shard plan)."""
+    layout (single-bucket or width-bucketed)."""
     bucket_slices = fa.bucket_slices or ((0, fa.n_clauses_padded, fa.max_width),)
     out = np.zeros((max(fa.n_slots, 1),), dtype=np.int32)
     off = 0
@@ -130,7 +125,6 @@ def compile_formula(
     var_pad: int = 128,
     bucket: bool = False,
     min_bucket: int = 256,
-    window_sort: bool = False,
 ) -> FormulaArrays:
     """Compile a normalized formula (variables must be dense indices
     ``0..k-1``; see :func:`normalize_cnf_variables`) into padded arrays.
@@ -160,17 +154,6 @@ def compile_formula(
         index_buckets = _make_buckets(widths, min_bucket)
     else:
         index_buckets = [list(range(M))]
-
-    if window_sort:
-        # order clauses inside each bucket by their lowest variable so
-        # consecutive clause spans touch a narrow variable window — the
-        # streaming kernel's per-span windows shrink accordingly on
-        # locally-structured instances (encoder-numbered variables).
-        # Clause order is an internal layout choice (see docstring).
-        index_buckets = [
-            sorted(ix, key=lambda i: min(l.variable for l in formula.clauses[i]))
-            for ix in index_buckets
-        ]
 
     # lay out each bucket as a lane-aligned slice of the clause axis
     bucket_meta = []  # (m0, m1, K_b, clause_indices)

@@ -1,6 +1,6 @@
 """Host-side CNF data model.
 
-TPU-first rebuild of the reference CNF AST (reference: src/cnf.rs:5-136).
+Rebuild of the reference CNF AST (reference: src/cnf.rs:5-136).
 The reference stores clauses as ndarray-of-struct; here the host model is
 plain Python (it never touches the device) — the device representation is
 the padded incidence arrays produced by :mod:`odesat_tpu.cnf.arrays`.

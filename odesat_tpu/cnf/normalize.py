@@ -48,11 +48,10 @@ def bandwidth_reorder(name_map: dict, formula: CNFFormula):
     Cuthill-McKee order over the variable co-occurrence graph, composing
     the permutation into ``name_map`` so solution readout is unchanged.
 
-    Purpose: the streaming kernels' per-span variable windows
-    (ops/stream_pallas.py) only tighten when clauses touch nearby
-    variable indices. Encoder-generated CNFs usually have that locality
-    natively; RCM recovers it for instances whose numbering was
-    scrambled. No reference counterpart (the reference has no layout
+    Purpose: clauses then touch nearby variable indices, so a clause's
+    literals sit close together in memory. Encoder-generated CNFs
+    usually have that locality natively; RCM recovers it for instances
+    whose numbering was scrambled. No reference counterpart (the reference has no layout
     notion); purely an internal relabeling — verified solutions map back
     through the composed ``name_map`` exactly as before."""
     used = sorted({lit.variable for clause in formula.clauses for lit in clause})

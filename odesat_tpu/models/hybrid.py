@@ -3,8 +3,8 @@
 No reference counterpart — the reference picks one engine per run
 (`solve`/`inter` vs `stoch`). The two engines have complementary
 strengths (the ODE excels on dense preprocessed instances, the
-clause-weighted local search on others), and on a TPU both are chunked
-device dispatches, so interleaving them costs nothing but the dispatch
+clause-weighted local search on others), and both are chunked device
+dispatches, so interleaving them costs nothing but the dispatch
 slots: run an ODE chunk, then a stoch chunk, stop as soon as either
 batch satisfies every clause. Each engine keeps its own batch and PRNG
 stream; the step budget applies to each engine independently.
@@ -51,8 +51,8 @@ def hybrid_search(
 
     ``mesh``: a ('traj', 'clause') mesh shards both engines' batches
     over the trajectory axis; a non-trivial clause axis shards the
-    incidence arrays of both engines (the ODE's streaming kernel plan
-    and the stoch engine's psum'd weight sums).
+    incidence arrays of both engines (the ODE's psum'd dv and the stoch
+    engine's psum'd weight sums).
 
     Ops parity with the single-engine loops: ``checkpoint_path`` +
     ``checkpoint_every_chunks`` snapshot BOTH engine states into one
@@ -64,9 +64,8 @@ def hybrid_search(
     if isinstance(formula_or_arrays, FormulaArrays):
         fa = formula_or_arrays
     elif mesh is not None:
-        # mesh-aware compile: clause-axis padding and (for clause
-        # shards) the ODE streaming kernel's shard plan; the stoch
-        # engine runs the same layout (an ordinary FormulaArrays)
+        # mesh-aware compile: clause-axis padding that divides across
+        # the clause devices; both engines run the same layout
         from odesat_tpu.parallel.sharded import compile_for_mesh
 
         fa = compile_for_mesh(formula_or_arrays, config, mesh)
@@ -75,7 +74,6 @@ def hybrid_search(
             formula_or_arrays,
             clause_pad=config.clause_pad,
             var_pad=config.var_pad,
-            window_sort=config.window_sort,
         )
     ode = config.ode
     zeta = ode.resolve_zeta(fa.density)
@@ -134,15 +132,6 @@ def hybrid_search(
     else:
         ode_state = init_state(fa, config.batch_size, k_ode, ode)
         stoch_state = init_stoch_state(fa, config.batch_size, k_stoch)
-    from odesat_tpu.ops.shard_chunk import resolve_stoch_shard_chunk
-
-    stoch_shard_chunk = mesh is not None and resolve_stoch_shard_chunk(
-        ode,
-        fa,
-        mesh.shape.get("clause", 1),
-        2 if ode.matmul_dtype == "bfloat16" else 4,
-    )
-
     def _make_runners(n):
         """(ode_runner, stoch_runner) advancing every trajectory n steps
         — one builder for the steady-state AND tail runners so their
@@ -153,19 +142,11 @@ def hybrid_search(
                 make_sharded_stoch_runner,
             )
 
-            return make_sharded_chunk_runner(
-                fa, zeta, ode, n, mesh
-            ), make_sharded_stoch_runner(
-                fa,
-                n,
-                mesh,
-                matmul_dtype=ode.matmul_dtype,
-                shard_chunk=stoch_shard_chunk,
+            return (
+                make_sharded_chunk_runner(fa, zeta, ode, n, mesh),
+                make_sharded_stoch_runner(fa, n, mesh),
             )
-        return (
-            make_chunk_runner(fa, zeta, ode, n),
-            make_stoch_chunk_runner(fa, n, matmul_dtype=ode.matmul_dtype),
-        )
+        return make_chunk_runner(fa, zeta, ode, n), make_stoch_chunk_runner(fa, n)
 
     if mesh is not None:
         from odesat_tpu.models.stoch import StochState

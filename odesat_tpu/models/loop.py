@@ -8,8 +8,7 @@ budget, log/checkpoint cadence, profiler bracketing — is identical and
 lives here once. The engines differ only in how a runner is built for a
 chunk length and in their stop predicate.
 
-Escalation: each chunk boundary costs a host round trip (measured 2.3x
-throughput loss at chunk=256, B=16384 on the remote TPU), so after
+Escalation: each chunk boundary costs a host round trip, so after
 every GROW_AFTER further chunks without stopping, the chunk grows 16x
 up to GROW_CAP — long runs converge to kernel-rate effective
 throughput while fast solves keep the fine early-exit window. Cadence

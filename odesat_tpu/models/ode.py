@@ -1,6 +1,6 @@
 """The continuous-time SAT engine: batched Euler integration under jit.
 
-TPU-first redesign of the reference integrators and drivers
+Batched redesign of the reference integrators and drivers
 (reference: src/system.rs:93-359). Key departures from the Rust design,
 all deliberate (SURVEY.md §7):
 
@@ -73,9 +73,7 @@ class ODEState(NamedTuple):
 
 class FormulaDevice(NamedTuple):
     """Device-resident incidence arrays, passed to the step function so
-    they can be sharded over a clause mesh axis. The last three fields
-    are the clause-sharded streaming kernel's per-shard plane data
-    (ops/shard_stream.py), ``None`` for ordinary compiles."""
+    they can be sharded over a clause mesh axis."""
 
     lit_var: jax.Array  # (K, Mp) int32
     sign: jax.Array  # (K, Mp)
@@ -83,16 +81,9 @@ class FormulaDevice(NamedTuple):
     clause_mask: jax.Array  # (Mp,)
     var_occ: jax.Array  # (Np, D) int32
     occ_mask: jax.Array  # (Np, D)
-    planes: Optional[jax.Array] = None  # (S, R, SPAN) sign-baked windows
-    span_lo: Optional[jax.Array] = None  # (S, n_spans) int32 window offsets
-    span_bias: Optional[jax.Array] = None  # (S, K, Mp_local)
 
 
-def formula_device(
-    fa: FormulaArrays, dtype=jnp.float32, matmul_dtype: str = "float32"
-) -> FormulaDevice:
-    plan = fa.shard_plan
-    mm = jnp.bfloat16 if matmul_dtype == "bfloat16" else jnp.float32
+def formula_device(fa: FormulaArrays, dtype=jnp.float32) -> FormulaDevice:
     return FormulaDevice(
         lit_var=jnp.asarray(fa.lit_var),
         sign=jnp.asarray(fa.sign, dtype=dtype),
@@ -100,9 +91,6 @@ def formula_device(
         clause_mask=jnp.asarray(fa.clause_mask, dtype=dtype),
         var_occ=jnp.asarray(fa.var_occ),
         occ_mask=jnp.asarray(fa.occ_mask, dtype=dtype),
-        planes=None if plan is None else jnp.asarray(plan.planes).astype(mm),
-        span_lo=None if plan is None else jnp.asarray(plan.lo),
-        span_bias=None if plan is None else jnp.asarray(plan.bias),
     )
 
 
@@ -189,69 +177,49 @@ def make_step_fn(
     ode: ODEConfig,
     clause_axis: Optional[str] = None,
     traj_axis: Optional[str] = None,
-    derivs_fn=None,
 ):
     """Build ``step(state, dev) -> state`` for a batched ODEState.
 
     When ``clause_axis`` is set, the step runs inside shard_map over that
     mesh axis: dv contributions, the allsat flag, and the adaptive error
-    norm are reduced with psum/pmax over ICI. ``traj_axis`` only matters
-    for ``dt_mode="shared"`` inside shard_map, where the batch-wide error
-    max must also reduce over the trajectory mesh axis.
-
-    ``derivs_fn(v, xs, xl, dev) -> (dv, dxs, dxl, allsat)`` overrides the
-    RHS evaluation (shard-local, pre-reduction) — used by the
-    clause-sharded streaming kernel (ops/shard_stream.py) to supply a
-    Pallas RHS while sharing this function's integrator semantics and
-    collective plumbing.
+    norm are reduced with psum/pmax across the clause devices.
+    ``traj_axis`` only matters for ``dt_mode="shared"`` inside shard_map,
+    where the batch-wide error max must also reduce over the trajectory
+    mesh axis.
     """
+    from odesat_tpu.ops.select import scan_strategy
+
     xl_cap = XL_CAP_PER_CLAUSE * fa.n_clauses  # real clause count (src/system.rs:95)
     zeta = float(zeta)
     dv_strategy = ode.dv_strategy
-    if dv_strategy in ("fused", "stream", "auto"):
-        # 'fused'/'stream' are whole-chunk kernels (make_chunk_runner
-        # handles them); in single-step contexts pick between the XLA
-        # accumulators
-        dv_strategy = "segment_sum" if fa.max_occ > 32 else "gather"
-    if clause_axis is not None and dv_strategy in ("gather", "onehot", "pallas"):
+    if dv_strategy in ("fused", "auto"):
+        # 'fused' is a whole-chunk kernel (make_chunk_runner handles
+        # it); in single-step contexts pick between the XLA accumulators
+        dv_strategy = scan_strategy(fa)
+    if clause_axis is not None and dv_strategy in ("gather", "onehot"):
         # variable-major occurrence tables index the *global* flattened
         # clause slots; under a clause shard each device only holds its
         # slice, so fall back to a local segment-sum + psum.
         dv_strategy = "segment_sum"
-    if clause_axis is not None and derivs_fn is None and len(fa.bucket_slices) > 1:
+    if clause_axis is not None and len(fa.bucket_slices) > 1:
         raise ValueError(
-            "width-bucketed formulas need the clause-sharded streaming "
-            "kernel (ops/shard_stream.py); the scan fallback requires "
-            "bucket=False on a clause mesh"
+            "width-bucketed formulas cannot shard over a clause mesh axis "
+            "(bucket coordinates are global); compile with bucket=False"
         )
     if dv_strategy == "onehot" and fa.min_width < 2:
         # unit clauses carry infinite gradients (see ops/rhs.py); the
         # one-hot matmul would turn inf * 0 into NaN, so fall back
         dv_strategy = "gather"
 
-    pallas_rhs = None
-    if dv_strategy == "pallas":
-        from odesat_tpu.ops.rhs_pallas import make_pallas_rhs
-
-        pallas_rhs = make_pallas_rhs(fa, zeta=zeta, rigidity=ode.rigidity, dtype=_dtype(ode))
-
     onehot = None
     if dv_strategy == "onehot":
         # constant (K*M, N) incidence matrix, baked at build time so the
-        # MXU matmul reuses one buffer instead of rematerializing it
+        # matmul reuses one buffer instead of rematerializing it
         onehot = rhs_ops.build_onehot(
             jnp.asarray(fa.lit_var), jnp.asarray(fa.lit_mask), fa.n_vars_padded, dtype=_dtype(ode)
         )
 
     def derivs(v, xs, xl, dev: FormulaDevice):
-        if derivs_fn is not None:
-            dv, dxs, dxl, allsat = derivs_fn(v, xs, xl, dev)
-            if clause_axis is not None:
-                dv = jax.lax.psum(dv, clause_axis)
-                allsat = jax.lax.psum((~allsat).astype(jnp.int32), clause_axis) == 0
-            return dv, dxs, dxl, allsat
-        if pallas_rhs is not None:
-            return pallas_rhs(v, xs, xl)
         dv, dxs, dxl, allsat = rhs_ops.compute_derivatives(
             v,
             xs,
@@ -354,62 +322,18 @@ def make_chunk_runner(
     ``chunk_steps`` steps (solved trajectories stay frozen). The state
     buffers are donated so XLA updates them in place.
 
-    dv_strategy='fused' dispatches the whole chunk to the multi-step
-    Pallas kernel (state resident in VMEM, ops/fused_pallas.py) instead
-    of a lax.scan of single steps; 'stream' uses the HBM-streaming
-    variant for formulas too big for the resident kernel
-    (ops/stream_pallas.py, ~5x the bucketed gather path on preprocessed
-    n=1k random 3-SAT); 'auto' picks fused, then stream, on TPU when
-    the formula supports them (fused measured 12-14x over the scan
-    path on v5e)."""
-    strategy = ode.dv_strategy
-    # the chunk kernels carry per-trajectory dt columns; a batch-shared
-    # dt needs the scan path's cross-batch reduction (only matters for
-    # the adaptive integrator — fixed mode never reads dt)
-    shared_adaptive = ode.dt_mode == "shared" and ode.step_size is None
-    if shared_adaptive and strategy in ("fused", "stream"):
-        raise ValueError(
-            "dt_mode='shared' is not supported by the chunk kernels; "
-            "use dv_strategy='auto' (scan path) or per-trajectory dt"
-        )
-    if strategy == "auto":
-        from odesat_tpu.ops.fused_pallas import fused_supported
-        from odesat_tpu.ops.stream_pallas import stream_supported
+    ``ops/select.resolve_strategy`` decides the path: the fused Pallas
+    chunk kernel (ops/fused_pallas.py) runs the whole chunk in one
+    launch; the scan path runs a ``lax.scan`` of single steps."""
+    from odesat_tpu.ops.select import resolve_strategy
 
-        itemsize = 2 if ode.matmul_dtype == "bfloat16" else 4
-        if (
-            jax.default_backend() == "tpu"
-            and ode.dtype == "float32"
-            and not shared_adaptive
-            and fused_supported(fa, itemsize)
-        ):
-            strategy = "fused"
-        elif (
-            jax.default_backend() == "tpu"
-            and ode.dtype == "float32"
-            and not shared_adaptive
-            and stream_supported(fa, itemsize)
-        ):
-            strategy = "stream"
-        elif fa.max_occ > 32:
-            # wide occurrence tables make the variable-major gather pay
-            # N*D >> nnz; scatter-add wins (measured 2x on preprocessed
-            # n=1k random 3-SAT)
-            strategy = "segment_sum"
-        else:
-            strategy = "gather"
-        ode = dataclasses.replace(ode, dv_strategy=strategy)
-
+    strategy = resolve_strategy(fa, ode)
     if strategy == "fused":
         from odesat_tpu.ops.fused_pallas import make_fused_chunk
 
         # already jitted inside (shape-cached; donated state)
         return make_fused_chunk(fa, zeta, ode, chunk_steps, donate=donate)
-
-    if strategy == "stream":
-        from odesat_tpu.ops.stream_pallas import make_stream_chunk
-
-        return make_stream_chunk(fa, zeta, ode, chunk_steps, donate=donate)
+    ode = dataclasses.replace(ode, dv_strategy=strategy)
 
     step = make_step_fn(fa, zeta, ode)
 
@@ -424,15 +348,13 @@ def make_chunk_runner(
 
 
 # Multi-chunk runners are cached so repeated simulate_batch calls don't
-# re-jit (and re-compile, seconds each on the remote backend) the
-# while_loop program. Two tiers:
+# re-jit (and re-compile) the while_loop program. Two tiers:
 #  - chunk runners exposing a shape-cached core (_core/_extra from
-#    ops/kernelctx.wrap_chunk_runner — the fused/stream Pallas kernels)
-#    share ONE compiled while program per static shape: the incidence
-#    planes ride as jit ARGUMENTS, so a same-shaped instance costs
-#    nothing. Tracing the closure wrapper instead would bake the planes
-#    in as constants — one full remote compile per instance (measured
-#    ~7 s per uf250 instance before this split).
+#    ops/kernelctx.wrap_chunk_runner — the fused Pallas kernel) share
+#    ONE compiled while program per static shape: the incidence planes
+#    ride as jit ARGUMENTS, so a same-shaped instance costs nothing.
+#    Tracing the closure wrapper instead would bake the planes in as
+#    constants — one full compile per instance.
 #  - scan-path runners (content threads through `dev`) fall back to a
 #    bounded formula-identity cache; the value pins `fa` so a recycled
 #    id() cannot alias a dead formula's runner.
@@ -459,7 +381,7 @@ def make_multi_chunk_runner(
         # max_chunks rides as a TRACED scalar, not a static constant —
         # one compiled while program per (shape, inner chunk) serves
         # every dispatch-slice and budget-tail size (a static bound
-        # meant one slow remote compile per distinct budget)
+        # meant one compile per distinct budget)
         key = (chunk._cache_key, stop_on)
         jitted_run = _MULTI_CORE_CACHE.get(key)
         if jitted_run is None:
@@ -512,11 +434,11 @@ def _build_multi_chunk_runner(
     ``max_chunks`` chunks of ``chunk_steps`` inside ONE dispatch, with an
     on-device done short-circuit between chunks (``lax.while_loop``).
 
-    Small batches are dispatch-latency bound: the remote-TPU round trip
+    Small batches are dispatch-latency bound: the host round trip
     dwarfs the step cost, and host-side chunk escalation merely
     amortizes it at the price of coarse early exit. The device loop
     keeps the fine exit window (one inner chunk) while paying ONE
-    dispatch per ``max_chunks`` chunks — the TPU shape of the
+    dispatch per ``max_chunks`` chunks — the batched shape of the
     reference's per-step solved break (src/system.rs:192-196).
     ``steps_advanced`` is exact (chunks actually run x chunk_steps), so
     the host budget accounting stays precise."""
@@ -592,7 +514,6 @@ def simulate_batch(
             clause_pad=config.clause_pad,
             var_pad=config.var_pad,
             bucket=bucket,
-            window_sort=config.window_sort,
         )
     ode = config.ode
     zeta = ode.resolve_zeta(fa.density)
@@ -615,11 +536,10 @@ def simulate_batch(
         state = jax.tree.map(jnp.asarray, loaded)
     else:
         state = init_state(fa, config.batch_size, key, ode, v0=v0)
-    dev = formula_device(fa, dtype=_dtype(ode), matmul_dtype=ode.matmul_dtype)
+    dev = formula_device(fa, dtype=_dtype(ode))
 
-    # Chunked dispatch is round-trip bound on the remote TPU (measured
-    # 1.30e8 vs 2.24e8 traj*steps/s at B=16384, chunk=500 on hard.cnf).
-    # An on-device bounded while_loop runs many chunks per dispatch with
+    # Chunked dispatch pays one host round trip per chunk. An on-device
+    # bounded while_loop runs many chunks per dispatch with
     # an exact done short-circuit between them (make_multi_chunk_runner)
     # — unlike host-side chunk growth, the early-exit window stays ONE
     # inner chunk while dispatch overhead amortizes over the whole
@@ -667,9 +587,9 @@ def simulate_batch(
             return lambda st: r(st, dev)
 
         # trajectory-only (pure DP) meshes get the same device-loop
-        # dispatch as the single-chip path: the stop flag reduces over
-        # the traj axis every inner chunk (pmax over ICI), so a pod run
-        # pays one host round trip per dispatch instead of per chunk
+        # dispatch as the single-device path: the stop flag reduces over
+        # the traj axis every inner chunk (a pmax), so a mesh run pays
+        # one host round trip per dispatch instead of per chunk
         mesh_loop = (
             harvest is None
             and dispatch_ok

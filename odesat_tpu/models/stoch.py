@@ -1,6 +1,6 @@
 """Stochastic discrete engine: clause-weighted randomized local search.
 
-TPU-first rebuild of the reference's second solver (reference:
+Batched rebuild of the reference's second solver (reference:
 src/stoch.rs:1-110). Per step:
 
 * every clause is evaluated against the boolean assignment
@@ -24,7 +24,7 @@ Design departures, all deliberate:
   SURVEY.md §5 calls for seedability);
 * clause weights are int32 clamped to [1, 2**24] instead of saturating
   u64: weights beyond 16.7M are indistinguishable for the flip
-  probabilities, and int32 keeps the TPU on its native integer path.
+  probabilities, and int32 keeps the device on its native integer path.
 """
 
 from __future__ import annotations
@@ -186,43 +186,11 @@ def make_stoch_clause_step(clause_axis: str):
     return step
 
 
-def make_stoch_chunk_runner(
-    fa: FormulaArrays,
-    chunk_steps: int,
-    fused: str = "auto",
-    matmul_dtype: str = "float32",
-    donate: bool = True,
-):
-    """fused: "auto" picks the multi-step resident Pallas kernel on TPU
-    when the formula fits its VMEM envelope (ops/stoch_pallas.py), then
-    the HBM-streaming variant for larger formulas; "on"/"off" force.
-    The kernels' PRNG stream differs from the scan path's jax.random
-    stream (reproducible per seed within one path). ``donate=False``
-    when the runner is re-wrapped (e.g. under shard_map, where the
-    wrapper owns donation)."""
-    if fused != "off":
-        from odesat_tpu.ops.stoch_pallas import (
-            make_fused_stoch_chunk,
-            make_stream_stoch_chunk,
-            stoch_fused_supported,
-            stoch_stream_supported,
-        )
-
-        if stoch_fused_supported(fa) and (
-            fused == "on" or jax.default_backend() == "tpu"
-        ):
-            # already jitted inside (shape-cached; donated state)
-            return make_fused_stoch_chunk(
-                fa, chunk_steps, donate=donate, matmul_dtype=matmul_dtype
-            )
-        itemsize = 2 if matmul_dtype == "bfloat16" else 4
-        if stoch_stream_supported(fa, itemsize) and (
-            fused == "on" or jax.default_backend() == "tpu"
-        ):
-            return make_stream_stoch_chunk(
-                fa, chunk_steps, matmul_dtype=matmul_dtype, donate=donate
-            )
-
+def make_stoch_chunk_runner(fa: FormulaArrays, chunk_steps: int, donate: bool = True):
+    """Jitted ``state -> state`` running ``chunk_steps`` steps as a
+    ``lax.scan`` with ``jax.random`` flips. ``donate=False`` when the
+    runner is re-wrapped (e.g. under shard_map, where the wrapper owns
+    donation)."""
     step = make_stoch_step(fa)
 
     def run_chunk(state: StochState) -> StochState:
@@ -233,80 +201,6 @@ def make_stoch_chunk_runner(
         return out
 
     return jax.jit(run_chunk, donate_argnums=0 if donate else ())
-
-
-def stoch_core_supported(
-    fa: FormulaArrays, matmul_dtype: str = "float32", fused: str = "auto"
-) -> bool:
-    """Build-free check that make_stoch_chunk_runner would pick a
-    shape-cached Pallas kernel (fused or streaming) over the scan path —
-    mirrors its kernel ladder without materializing incidence planes,
-    so device-loop gates can probe per solve for free."""
-    if fused == "off":
-        return False
-    if fused != "on" and jax.default_backend() != "tpu":
-        return False
-    from odesat_tpu.ops.stoch_pallas import (
-        stoch_fused_supported,
-        stoch_stream_supported,
-    )
-
-    itemsize = 2 if matmul_dtype == "bfloat16" else 4
-    return bool(
-        stoch_fused_supported(fa) or stoch_stream_supported(fa, itemsize)
-    )
-
-
-# One compiled while program per static shape: the chunk kernel's core
-# traces with its incidence planes as jit ARGUMENTS (see
-# ops/kernelctx.wrap_chunk_runner and the ODE twin in models/ode.py),
-# so a same-shaped instance reuses the program instead of recompiling.
-_MULTI_STOCH_CACHE: dict = {}
-
-
-def make_multi_stoch_runner(
-    fa: FormulaArrays,
-    chunk_steps: int,
-    max_chunks: int,
-    matmul_dtype: str = "float32",
-    fused: str = "auto",
-):
-    """Jitted ``state -> (state, steps_advanced)`` running up to
-    ``max_chunks`` chunks of ``chunk_steps`` inside ONE dispatch with an
-    on-device done short-circuit between chunks — the stoch twin of
-    models/ode.make_multi_chunk_runner. Returns None when the chunk
-    runner has no shape-cached core (scan path), where the caller keeps
-    host-paced chunks."""
-    chunk = make_stoch_chunk_runner(
-        fa, chunk_steps, fused=fused, matmul_dtype=matmul_dtype, donate=False
-    )
-    core = getattr(chunk, "_core", None)
-    if core is None:
-        return None
-    # max_chunks is a TRACED scalar (see the ODE twin): one compiled
-    # while program per (shape, inner chunk) serves every dispatch and
-    # budget-tail size
-    cache_key = chunk._cache_key
-    jitted_run = _MULTI_STOCH_CACHE.get(cache_key)
-    if jitted_run is None:
-
-        def run(state: StochState, extra, n_chunks):
-            def cond(carry):
-                st, i = carry
-                return (i < n_chunks) & ~jnp.any(st.done)
-
-            def body(carry):
-                st, i = carry
-                return core(st, *extra), i + 1
-
-            st, n = jax.lax.while_loop(cond, body, (state, jnp.int32(0)))
-            return st, n * chunk_steps
-
-        jitted_run = jax.jit(run, donate_argnums=0)
-        _MULTI_STOCH_CACHE[cache_key] = jitted_run
-    extra = chunk._extra
-    bound = jnp.int32(max_chunks)
-    return lambda state: jitted_run(state, extra, bound)
 
 
 def search(
@@ -328,7 +222,7 @@ def search(
     the chain batch as pure data parallelism, one PRNG key per traj
     device (parallel/sharded.make_sharded_stoch_runner); a non-trivial
     clause axis shards the incidence/weight arrays for CNFs too big for
-    one chip, with the per-variable weight sums psum-reduced over it.
+    one device, with the per-variable weight sums psum-reduced over it.
     The sharded PRNG stream differs from the single-device stream for
     the same seed (per-device key splits); runs are reproducible per
     (seed, mesh traj width)."""
@@ -337,9 +231,7 @@ def search(
     if isinstance(formula_or_arrays, FormulaArrays):
         fa = formula_or_arrays
     elif n_clause > 1:
-        # mesh-aware compile: the clause-shard plan layout unlocks the
-        # per-shard Pallas evaluation (ops/stoch_pallas) when eligible;
-        # plain even-padded layout (scan path) otherwise
+        # mesh-aware compile: the clause axis divides across the mesh
         from odesat_tpu.parallel.sharded import compile_for_mesh
 
         fa = compile_for_mesh(formula_or_arrays, config, mesh)
@@ -349,18 +241,10 @@ def search(
             formula_or_arrays,
             clause_pad=config.clause_pad,
             var_pad=config.var_pad,
-            window_sort=config.window_sort,
         )
     if key is None:
         seed = config.seed if config.seed is not None else int.from_bytes(__import__("os").urandom(4), "little")
         key = jax.random.PRNGKey(seed)
-
-    # one dispatch plan for both branches (models/loop.py): the gate is
-    # ANDed with each branch's own core-availability probe below
-    from odesat_tpu.models.loop import device_dispatch_plan
-
-    inner_chunk = config.chunk_steps
-    use_device_loop, DISPATCH_STEPS = device_dispatch_plan(config, config.ode.steps)
 
     if mesh is not None:
         from odesat_tpu.parallel.sharded import (
@@ -381,74 +265,15 @@ def search(
                 f"{n_traj} trajectory devices"
             )
 
-        from odesat_tpu.ops.shard_chunk import resolve_stoch_shard_chunk
-
-        use_shard_chunk = resolve_stoch_shard_chunk(
-            config.ode,
-            fa,
-            n_clause,
-            2 if config.ode.matmul_dtype == "bfloat16" else 4,
-        )
-
-        # trajectory-only meshes get the device loop (see the
-        # single-chip branch below); clause meshes have their own
-        # whole-chunk in-kernel collective path (--shard-chunk).
-        # Without a shape-cached core kernel the fallback would be one
-        # huge host-paced chunk with no early exit, so AND with the
-        # build-free eligibility check.
-        from odesat_tpu.parallel.sharded import sharded_multi_stoch_supported
-
-        use_device_loop = use_device_loop and sharded_multi_stoch_supported(
-            fa, mesh, matmul_dtype=config.ode.matmul_dtype
-        )
 
         def make_runner(n):
-            if use_device_loop and n > inner_chunk:
-                from odesat_tpu.parallel.sharded import (
-                    make_sharded_multi_stoch_runner,
-                )
-
-                multi = make_sharded_multi_stoch_runner(
-                    fa, inner_chunk, n // inner_chunk, mesh,
-                    matmul_dtype=config.ode.matmul_dtype,
-                )
-                if multi is not None:
-                    return multi
-            return make_sharded_stoch_runner(
-                fa,
-                n,
-                mesh,
-                matmul_dtype=config.ode.matmul_dtype,
-                shard_chunk=use_shard_chunk,
-            )
+            return make_sharded_stoch_runner(fa, n, mesh)
 
     else:
-        # Same device-loop dispatch structure as the ODE engine
-        # (models/ode.py simulate_batch): when the chunk runner exposes
-        # a shape-cached core, run many chunks per dispatch inside an
-        # on-device while_loop with a done short-circuit between them —
-        # round trips amortize over the whole dispatch while the
-        # early-exit window stays ONE inner chunk. Scan-path runners
-        # (no core) keep host-paced chunks, which also sidesteps the
-        # bake-planes-as-constants recompile trap (the scan path has no
-        # shape-cached core, and a big dispatch slice without the loop
-        # would be one huge chunk with no early exit — hence the
-        # build-free core check).
-        use_device_loop = use_device_loop and stoch_core_supported(
-            fa, matmul_dtype=config.ode.matmul_dtype
-        )
-
+        # host-paced chunks (models/loop.py drive_chunks escalates their
+        # length on long runs)
         def make_runner(n):
-            if use_device_loop and n > inner_chunk:
-                multi = make_multi_stoch_runner(
-                    fa, inner_chunk, n // inner_chunk,
-                    matmul_dtype=config.ode.matmul_dtype,
-                )
-                if multi is not None:
-                    return multi
-            return make_stoch_chunk_runner(
-                fa, n, matmul_dtype=config.ode.matmul_dtype
-            )
+            return make_stoch_chunk_runner(fa, n)
 
     steps_resumed = 0
     if config.resume_from:
@@ -491,10 +316,6 @@ def search(
     from odesat_tpu.models.loop import drive_chunks
     from odesat_tpu.utils.checkpoint import mesh_layout_of
 
-    # DISPATCH_STEPS is already clipped to the budget by
-    # device_dispatch_plan; use_device_loop is defined by both the mesh
-    # and single-chip branches
-    dispatch_chunk = DISPATCH_STEPS if use_device_loop else None
     state, steps_run, wall_time = drive_chunks(
         state,
         make_runner,
@@ -502,7 +323,6 @@ def search(
         budget=config.ode.steps,
         should_stop=lambda st, done: bool(done.any()),
         steps_resumed=steps_resumed,
-        chunk_steps=dispatch_chunk,
         mesh_layout=mesh_layout_of(mesh),
     )
 

@@ -1,6 +1,6 @@
 // odesat_tpu native host runtime (C ABI, loaded via ctypes).
 //
-// The TPU owns the numeric hot loop (JAX/Pallas); this library owns the
+// The accelerator owns the numeric hot loop (JAX/Pallas); this library owns the
 // host-side hot paths around it:
 //
 //  * DIMACS parsing (odesat_parse_dimacs) — the reference parses with

@@ -1,6 +1,8 @@
-"""Device compute ops: the fused ODE right-hand side (jnp and Pallas
-variants), per-variable accumulation strategies, and the NumPy oracle
-transcription of the reference kernel used as the test ground truth."""
+"""Device compute ops: the ODE right-hand side as one fused XLA
+computation, its per-variable accumulation strategies, the fused
+multi-step Pallas chunk kernel for GPUs, the one function that chooses
+between kernel and scan path, and the NumPy oracle transcription of the
+reference kernel used as the test ground truth."""
 
 from odesat_tpu.ops.fused_pallas import fused_supported, make_fused_chunk
 from odesat_tpu.ops.rhs import (
@@ -12,8 +14,7 @@ from odesat_tpu.ops.rhs import (
     compute_derivatives,
     top2_min,
 )
-from odesat_tpu.ops.rhs_pallas import make_pallas_rhs
-from odesat_tpu.ops.stoch_pallas import make_fused_stoch_chunk, stoch_fused_supported
+from odesat_tpu.ops.select import resolve_strategy
 
 __all__ = [
     "accumulate_dv_gather",
@@ -24,8 +25,6 @@ __all__ = [
     "compute_derivatives",
     "fused_supported",
     "make_fused_chunk",
-    "make_fused_stoch_chunk",
-    "make_pallas_rhs",
-    "stoch_fused_supported",
+    "resolve_strategy",
     "top2_min",
 ]

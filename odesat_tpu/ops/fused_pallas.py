@@ -1,29 +1,51 @@
-"""Multi-step fused Pallas kernel: a whole integration chunk in VMEM.
+"""Multi-step fused ODE chunk kernel for NVIDIA Hopper (Pallas, Triton route).
 
-The XLA scan path (models/ode.py) round-trips the trajectory state and
-the (B, K, M) intermediates through HBM on every step — measured at
-~25% of v5e HBM bandwidth. This kernel instead grids over *trajectory
-blocks* and runs ``chunk_steps`` whole Euler steps in a fori_loop with
-everything resident in VMEM:
+The XLA scan path (models/ode.py over ops/rhs.py) writes the trajectory
+state and the (B, K, M) step intermediates to device memory on every
+step, and XLA cannot fuse across ``lax.scan`` iterations. This kernel
+runs ``chunk_steps`` whole Euler steps per launch instead:
 
-* state block (Bb, Np)+(Bb, Mp)x2 is read from HBM once per chunk and
-  written back once — HBM traffic shrinks by ~chunk_steps x;
-* the v-gather and dv-accumulation ride the MXU against the one-hot
-  incidence G (K*Np, Mp) held in VMEM for the whole chunk;
-* per-trajectory done latches (and dt, in the adaptive variant) are
-  (Bb, 1) columns carried through the loop, preserving the freeze
-  semantics of the scan path exactly: fixed mode updates on the
-  detecting step then freezes (reference: src/system.rs:141-154);
-  adaptive mode never advances a satisfied state (src/system.rs:122)
-  and clips dt into [2^-7, 1e3] (src/system.rs:132-135).
+* **Grid**: one program per block of ``Bb`` trajectories (16-64 rows,
+  chosen so a large batch fills every SM).
+* **Chunk loop inside the kernel**: ``v``, ``dt`` and ``done`` of the
+  block stay in registers for the whole chunk.
+* **Clause tiles**: within a step the clause axis is walked in tiles of
+  ``TM`` clauses. Per tile and literal slot k, a forward ``pl.dot`` of
+  ``v`` against the tile's slice of the sign-baked plane ``G_k`` gives
+  the literal values ``1 - q_i v_i`` directly; the top-2-min and the
+  clause terms follow on the tile; a transposed ``pl.dot`` against the
+  same slice adds the tile's share into ``dv``. The tile's clause
+  memories ``xs``/``xl`` are read and written in device memory (the
+  block's rows stay L2-resident); the planes are read through L2.
+* **Precision**: the plane holds only -1, 0 and +1, which bf16 stores
+  exactly, so every dot runs on bf16 tensor cores with f32
+  accumulation. f32 mode splits each f32 operand into three bf16 parts
+  (hi + mid + lo carry all 24 significand bits) and sums three dots:
+  each product with the plane is exact, so the forward pass reproduces
+  ``1 - q_i v_i`` exactly and dv differs from an IEEE f32 dot only in
+  summation order. No TF32 anywhere. bf16 mode passes one bf16 part,
+  rounding ``v`` and the contributions to 8 significand bits.
 
-Frozen trajectories take a dt=0 update, which is the identity up to the
-clamps (state components are already inside their clamp ranges after the
-first real update).
+Plane k holds ``-q_i`` at the literal's variable row, so
+``v @ G_k + bias`` is the clause value (bias 1, or 1 + BIG at padding
+slots, which then lose every min) and the same plane scatters dv through
+the identity ``r = q_i * value_i / 2`` (``q_i^2 = 1``,
+reference: src/system.rs:73-77), with -1/2 folded into the per-clause
+coefficients.
 
-Applicability: formulas whose one-hot block fits VMEM (K*Np*Mp*4 bytes
-up to ~8MB — covers aim100/uf250-class instances; bigger CNFs use the
-XLA gather path) and no unit clauses (inf gradients, see ops/rhs.py).
+Freeze semantics match the scan path: fixed mode updates on the
+detecting step and then freezes (src/system.rs:141-154); adaptive mode
+never advances a satisfied state (src/system.rs:122) and clips dt into
+[2^-7, 1e3] (src/system.rs:132-135). The adaptive step makes two passes
+over the tiles: the first evaluates the RHS at the current state and
+keeps each tile's clause value ``c`` in a scratch output; the second
+rebuilds the half step from it, evaluates the RHS at the half step, and
+writes the accepted state.
+
+Applicability (``fused_supported``): no unit clauses (their infinite
+gradients would meet the plane's zeros), f32 state, a bf16 plane of at
+most 8 MB (aim/uf250-class formulas; larger formulas run the scan path),
+and a padded clause axis divisible by a power-of-two tile of 16 or 32.
 """
 
 from __future__ import annotations
@@ -32,8 +54,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-from odesat_tpu.ops.kernelctx import pallas_call_32bit, wrap_chunk_runner
+from jax.experimental.pallas import triton as plgpu
 
 from odesat_tpu.cnf.arrays import FormulaArrays
 from odesat_tpu.constants import (
@@ -46,21 +67,73 @@ from odesat_tpu.constants import (
     GAMMA,
     XL_CAP_PER_CLAUSE,
 )
+from odesat_tpu.ops.kernelctx import pallas_call_32bit, wrap_chunk_runner
 
-_INF = float("inf")
-_BIG = 1.0e9  # padding-slot clause value: loses every min, finite (inf*0 = NaN in the MXU)
-_VMEM_G_LIMIT = 8 * 1024 * 1024
+_BIG = 1.0e9  # padding-slot clause value: loses every min, finite (0 * inf = NaN in a dot)
+_PLANE_LIMIT = 8 * 1024 * 1024  # bytes of sign-baked plane the kernel reads per step
+_BLOCK_ELEMS = 4096  # Bb * padded variables * bf16 parts per (Bb, Np) operand
+_MIN_ROWS = 16  # Triton's dot needs at least 16 rows and columns
+_FILL_PROGRAMS = 132  # SMs on one H100: large batches get at least this many programs
+# clause tile and warps per program: the fastest of tiles 16/32 and 4/8
+# warps on an H100 at hard.cnf and uf250 widths (chip_smoke.py cells);
+# 128-clause f32 tiles overflowed shared memory
+_TILE = 32
+_NUM_WARPS = 4
 _JIT_CACHE = {}  # static shape signature -> jitted kernel (see make_fused_chunk)
 
 
-def fused_supported(fa: FormulaArrays, itemsize: int = 4) -> bool:
-    """itemsize: bytes per one-hot entry (4 for f32 matmuls, 2 for bf16 —
-    bfloat16 doubles the formula-size envelope)."""
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def clause_tile(Mp: int) -> int:
+    """Largest power-of-two tile of at most ``_TILE`` clauses dividing
+    the padded clause axis (0 when none of at least 16 does)."""
+    t = _TILE
+    while t >= _MIN_ROWS:
+        if Mp % t == 0:
+            return t
+        t //= 2
+    return 0
+
+
+def fused_supported(fa: FormulaArrays) -> bool:
+    """Build-free eligibility of a formula for the kernel."""
     K, Mp = fa.lit_var.shape
     return (
         fa.min_width >= 2
-        and K * fa.n_vars_padded * Mp * itemsize <= _VMEM_G_LIMIT
+        and clause_tile(Mp) > 0
+        and _next_pow2(fa.n_vars_padded) * K * Mp * 2 <= _PLANE_LIMIT
     )
+
+
+def traj_block(batch: int, n_vars_pow2: int, parts: int = 1) -> int:
+    """Rows per program: at most ``_BLOCK_ELEMS / (Np * parts)``
+    (registers; f32 mode holds three bf16 parts of each dot operand), at
+    least 16 (Triton's dot), and small enough that a batch of at least
+    ``_FILL_PROGRAMS * 16`` rows launches ``_FILL_PROGRAMS`` programs.
+    On an H100 at hard.cnf width this picks 16 rows in f32 mode and 32
+    in bf16 mode, the fastest of 16/32/64 for each."""
+    bb = max(_MIN_ROWS, min(64, _next_pow2(_BLOCK_ELEMS // (n_vars_pow2 * parts) + 1) // 2))
+    while bb > _MIN_ROWS and batch >= _FILL_PROGRAMS * _MIN_ROWS and -(-batch // bb) < _FILL_PROGRAMS:
+        bb //= 2
+    while bb > _MIN_ROWS and bb >= 2 * batch:
+        bb //= 2
+    return bb
+
+
+def build_planes(fa: FormulaArrays, n_vars_pow2: int):
+    """Sign-baked planes (Np2, K*Mp), per-slot bias (K*Mp,) and clause
+    mask (Mp,), as host arrays."""
+    K, Mp = fa.lit_var.shape
+    G = np.zeros((n_vars_pow2, K * Mp), dtype=np.float32)
+    bias = np.full((K * Mp,), 1.0 + _BIG, dtype=np.float32)
+    cols = np.arange(Mp)
+    for k in range(K):
+        on = fa.lit_mask[k] > 0
+        G[fa.lit_var[k][on], k * Mp + cols[on]] = -fa.sign[k][on]
+        bias[k * Mp + cols[on]] = 1.0
+    return G, bias, fa.clause_mask.astype(np.float32)
 
 
 def make_fused_chunk(
@@ -68,350 +141,313 @@ def make_fused_chunk(
     zeta: float,
     ode,
     chunk_steps: int,
-    traj_block: int = 512,
-    interpret: bool | None = None,
+    interpret: bool = False,
     donate: bool = False,
-    interleave: int = 1,
 ):
     """Build ``fn(state: ODEState, dev) -> ODEState`` advancing every
     trajectory ``chunk_steps`` steps in one kernel launch. ``dev`` is
     accepted for signature parity with the scan runner and ignored.
 
-    The incidence arrays ride as jit *arguments* and the jitted kernel
-    is cached on the formula's static shape signature — solving many
-    same-shape instances (restart families, benchmark seed sets,
-    production streams) compiles once instead of once per formula."""
+    The planes ride as jit *arguments* and the jitted kernel is cached on
+    the formula's static shape signature, so same-shaped instances share
+    one compiled program (ops/kernelctx.wrap_chunk_runner).
+    ``interpret=True`` runs the kernel in the Pallas interpreter; only
+    tests ask for it."""
+    from odesat_tpu.ops.select import require_gpu
+
     if getattr(ode, "dtype", "float32") == "float64":
-        # the kernel carries f32 state and f32/bf16 MXU passes throughout;
-        # silently downcasting a requested f64 run would betray the
-        # reference-parity dtype (src/system.rs:6-11) — reject cleanly
+        # the kernel carries f32 state; silently downcasting a requested
+        # f64 run would betray the reference-parity dtype
         raise ValueError(
-            "dtype='float64' is not supported by the fused Pallas kernel; "
-            "use dv_strategy='gather'/'segment_sum' (the scan path) for f64"
+            "dtype='float64' is not supported by the fused kernel; use "
+            "dv_strategy='gather'/'segment_sum' (the scan path) for f64"
         )
-    itemsize = 2 if getattr(ode, "matmul_dtype", "float32") == "bfloat16" else 4
-    if not fused_supported(fa, itemsize):
+    if ode.dt_mode == "shared" and ode.step_size is None:
         raise ValueError(
-            "fused pallas chunk unsupported for this formula "
-            "(unit clauses or one-hot block exceeds VMEM); use the scan path"
+            "dt_mode='shared' is not supported by the fused kernel; use "
+            "dv_strategy='auto' (scan path) or per-trajectory dt"
         )
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    bf16 = getattr(ode, "matmul_dtype", "float32") == "bfloat16"
+    if not fused_supported(fa):
+        raise ValueError(
+            "the fused kernel does not support this formula (unit clauses, "
+            "plane beyond its 8 MB envelope, or no power-of-two clause "
+            "tile); use the scan path"
+        )
+    if not interpret:
+        require_gpu("dv_strategy='fused'")
 
     K, Mp = fa.lit_var.shape
     Np = fa.n_vars_padded
-    # shrink the trajectory block until the per-block working set fits
-    # the scoped-VMEM limit. Mosaic stack-allocates the in/out/pipeline
-    # state copies plus every live (Bb, Mp)/(Bb, K*Mp) intermediate of
-    # the step body (vals, contribs, m1/m2/A1/A2/a/b, update temps);
-    # calibrated against a measured case — Np=256, Mp=1152, K=3 at
-    # traj_block=1024 allocates 96.1MB ~= Bb*4*(2*Np + 7*K*Mp). A
-    # high-density formula can fit the G envelope yet blow this budget.
-    requested_block = traj_block
-    while traj_block > 64:
-        block_bytes = traj_block * 4 * (2 * Np + 7 * K * Mp)
-        if block_bytes <= 56 * 1024 * 1024:
-            break
-        traj_block //= 2
-    if traj_block != requested_block:
-        from odesat_tpu.utils.logging import logger
-
-        logger.info(
-            "fused kernel: traj_block %d exceeds the VMEM budget for "
-            "Np=%d Mp=%d K=%d; running at %d",
-            requested_block, Np, Mp, K, traj_block,
-        )
+    Np2 = _next_pow2(max(Np, _MIN_ROWS))
+    TM = clause_tile(Mp)
+    n_tiles = Mp // TM
     paper = ode.rigidity == "paper"
     fixed = ode.step_size is not None
     dt_fixed = float(ode.step_size) if fixed else 0.0
     tol = float(ode.tolerance)
     zeta_c = float(zeta)
-    xl_cap = XL_CAP_PER_CLAUSE * fa.n_clauses
-    bf16 = getattr(ode, "matmul_dtype", "float32") == "bfloat16"
-    mm_dtype = jnp.bfloat16 if bf16 else jnp.float32
-    # f32 mode is the parity path: force true-f32 MXU passes (the TPU
-    # default silently truncates f32 matmul inputs to bf16)
-    mm_precision = None if bf16 else jax.lax.Precision.HIGHEST
+    xl_cap = float(XL_CAP_PER_CLAUSE * fa.n_clauses)
+    n_parts = 1 if bf16 else 3  # bf16 pieces per f32 dot operand
 
-    # sign-baked planes (same trick as ops/stream_pallas.py): plane k
-    # holds -q_i at the literal's variable row, so valk = v @ G_k + bias
-    # is the clause value directly (bias = 1, or 1 + BIG at padding) and
-    # the same plane scatters dv via the identity r = q_i*value_i/2
-    # (q_i^2 = 1, src/system.rs:73-77) with -1/2 folded into the hoisted
-    # per-clause coefficients. The K planes are laid side by side as one
-    # (Np, K*Mp) block so each RHS pass is ONE forward matmul and ONE
-    # transposed scatter matmul — K small MXU ops per pass underfed the
-    # systolic array (round-1 MFU ~38%; VERDICT item 3).
-    G_np = np.zeros((Np, K * Mp), dtype=np.float32)
-    bias_np = np.full((1, K * Mp), 1.0 + _BIG, dtype=np.float32)
-    for k in range(K):
-        cols = np.arange(Mp)
-        on = fa.lit_mask[k] > 0
-        G_np[fa.lit_var[k][on], k * Mp + cols[on]] = -fa.sign[k][on]
-        bias_np[0, k * Mp + cols[on]] = 1.0
-    G_host = jnp.asarray(G_np).astype(mm_dtype)
+    G_np, bias_np, cmask_np = build_planes(fa, Np2)
+    G_host = jnp.asarray(G_np).astype(jnp.bfloat16)  # -1/0/+1: exact
     bias_host = jnp.asarray(bias_np)
-    cmask_host = jnp.asarray(fa.clause_mask.astype(np.float32).reshape(1, Mp))
+    cmask_host = jnp.asarray(cmask_np)
 
     cache_key = (
         "fused", Np, Mp, K, fa.n_clauses, zeta_c, paper, fixed, dt_fixed,
-        tol, bf16, chunk_steps, traj_block, interpret, donate, interleave,
+        tol, bf16, chunk_steps, interpret, donate,
     )
     jitted = _JIT_CACHE.get(cache_key)
     if jitted is not None:
         return wrap_chunk_runner(jitted, cache_key, G_host, bias_host, cmask_host)
 
-    def kernel(v_ref, xs_ref, xl_ref, dt_ref, done_ref,
-               g_ref, bias_ref, cmask_ref,
-               v_out, xs_out, xl_out, dt_out, done_out):
-        cmask = cmask_ref[:]  # (1, Mp)
-        cmask_on = cmask > 0
-        bias = bias_ref[:]  # (1, K*Mp)
+    def barrier():
+        # tile values stored in one thread layout are re-read in another:
+        # make the block's global-memory writes visible before reuse
+        if not interpret:
+            plgpu.debug_barrier()
 
-        def forward(v):
-            # one big forward pass: (Bb, Np) @ (Np, K*Mp)
-            return (
-                jnp.dot(
-                    v.astype(mm_dtype),
-                    g_ref[:],
-                    preferred_element_type=jnp.float32,
-                    precision=mm_precision,
-                )
-                + bias
-            )
+    def clamp_v(x):
+        return jnp.minimum(jnp.maximum(x, -1.0), 1.0)
 
-        def rhs_from_vals(vals_all, v, xs, xl):
-            m1 = m2 = None
+    def clamp_s(x):
+        return jnp.minimum(jnp.maximum(x, EPSILON), 1.0 - EPSILON)
+
+    def clamp_l(x):
+        return jnp.minimum(jnp.maximum(x, 1.0), xl_cap)
+
+    def kernel(v_ref, xs_ref, xl_ref, dt_ref, done_ref, g_ref, bias_ref, cmask_ref,
+               v_out, xs_out, xl_out, dt_out, done_out, *scratch):
+        def cols(t):
+            return pl.ds(pl.multiple_of(t * TM, TM), TM)
+
+        def plane(k, t):
+            return g_ref[:, pl.ds(pl.multiple_of(k * Mp + t * TM, TM), TM)]
+
+        def split(x):
+            """bf16 parts of an f32 array, smallest first; they sum to x."""
+            parts = []
+            for _ in range(n_parts - 1):
+                hi = x.astype(jnp.bfloat16)
+                parts.append(hi)
+                x = x - hi.astype(jnp.float32)
+            parts.append(x.astype(jnp.bfloat16))
+            return parts[::-1]
+
+        def pdot(parts, g, trans_b=False):
+            out = None
+            for part in parts:
+                d = pl.dot(part, g, trans_b=trans_b)
+                out = d if out is None else out + d
+            return out
+
+        def terms(vm, xs, xl, t):
+            """Clause value c (Bb, TM) and the tile's dv share (Bb, Np2);
+            ``vm`` is ``split(v)``."""
+            vals = []
             for k in range(K):
-                valk = vals_all[:, k * Mp : (k + 1) * Mp]
-                if m1 is None:
-                    m1 = valk
-                    m2 = jnp.full(valk.shape, _INF, dtype=v.dtype)
-                else:
-                    m2 = jnp.minimum(m2, jnp.maximum(m1, valk))
-                    m1 = jnp.minimum(m1, valk)
-
+                b_k = bias_ref[pl.ds(pl.multiple_of(k * Mp + t * TM, TM), TM)]
+                vals.append(pdot(vm, plane(k, t)) + b_k[None, :])
+            m1 = vals[0]
+            m2 = jnp.full_like(m1, _BIG * 4)
+            for valk in vals[1:]:
+                m2 = jnp.minimum(m2, jnp.maximum(m1, valk))
+                m1 = jnp.minimum(m1, valk)
             c = 0.5 * m1
-            # hoisted per-clause coefficients; the -1/2 cancels the
-            # sign-baked planes' -q_i so the scatter lands as +q_i/2*(.)
             a = -0.5 * (xl * xs)
             b = -0.5 * ((1.0 + zeta_c * xl) * (1.0 - xs))
-            # per-clause products hoisted out of the K loop: the original
-            # contrib a*minx + b*valk*gate costs 6 VPU ops per literal
-            # slot; with A1 = a*m1, A2 = a*m2 the paper-mode form
-            # where(is_min, A2 + b*valk, A1) is 4 (f32-exact identical —
-            # the untaken branch's + b*valk*0 was exact too)
             A1 = a * m1
             A2 = a * m2
-            contribs = []
+            dv = None
             for k in range(K):
-                valk = vals_all[:, k * Mp : (k + 1) * Mp]
+                valk = vals[k]
                 is_min = valk <= m1
                 if paper:
-                    contribs.append(jnp.where(is_min, A2 + b * valk, A1))
+                    contrib = jnp.where(is_min, A2 + b * valk, A1)
                 else:
-                    gate = (valk == c).astype(v.dtype)
-                    contribs.append(
-                        jnp.where(is_min, A2, A1) + b * (valk * gate)
-                    )
-            # one big transposed scatter: (Bb, K*Mp) x (Np, K*Mp)^T
-            dv = jax.lax.dot_general(
-                jnp.concatenate(contribs, axis=1).astype(mm_dtype),
-                g_ref[:],
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=v.dtype,
-                precision=mm_precision,
-            )
-            dxs = BETA * (xs + EPSILON) * (c - GAMMA) * cmask
-            dxl = ALPHA * (c - DELTA) * cmask
-            allsat = jnp.all((c < GAMMA) | ~cmask_on, axis=1, keepdims=True)
-            return dv, dxs, dxl, allsat
+                    contrib = jnp.where(is_min, A2, A1) + jnp.where(valk == c, b * valk, 0.0)
+                share = pdot(split(contrib), plane(k, t), trans_b=True)
+                dv = share if dv is None else dv + share
+            return c, dv
 
-        def update(v, xs, xl, dv, dxs, dxl, dt_col):
-            xs2 = jnp.fmin(jnp.fmax(xs + dt_col * dxs, EPSILON), 1.0 - EPSILON)
-            xl2 = jnp.fmin(jnp.fmax(xl + dt_col * dxl, 1.0), xl_cap)
-            v2 = jnp.fmin(jnp.fmax(v + dt_col * dv, -1.0), 1.0)
-            return v2, xs2, xl2
+        def unsat_rows(c, cm):
+            return jnp.max(jnp.where((c >= GAMMA) & (cm > 0.0), 1.0, 0.0), axis=1)
 
-        def rhs(v, xs, xl):
-            return rhs_from_vals(forward(v), v, xs, xl)
+        def dxs_of(xs, c, cm):
+            return BETA * (xs + EPSILON) * (c - GAMMA) * cm
+
+        def dxl_of(c, cm):
+            return ALPHA * (c - DELTA) * cm
+
+        Bb = v_ref.shape[0]
+
+        def copy_in(t, carry):
+            xs_out[:, cols(t)] = xs_ref[:, cols(t)]
+            xl_out[:, cols(t)] = xl_ref[:, cols(t)]
+            return carry
+
+        jax.lax.fori_loop(0, n_tiles, copy_in, 0)
+        barrier()
+        zeros_v = jnp.zeros((Bb, Np2), jnp.float32)
+        zeros_r = jnp.zeros((Bb,), jnp.float32)
 
         if fixed:
 
-            def step_one(v, xs, xl, dt, done):
-                dv, dxs, dxl, allsat = rhs(v, xs, xl)
-                active = done < 0.5  # (rows, 1)
-                dt_col = jnp.where(active, dt_fixed, 0.0)
-                v, xs, xl = update(v, xs, xl, dv, dxs, dxl, dt_col)
-                done = jnp.maximum(done, allsat.astype(done.dtype))
-                return v, xs, xl, dt, done
+            def step(_, carry):
+                v, done = carry
+                dt_col = jnp.where(done < 0.5, dt_fixed, 0.0)[:, None]
+                vm = split(v)
+
+                def tile_body(t, acc):
+                    dv, unsat = acc
+                    xs = xs_out[:, cols(t)]
+                    xl = xl_out[:, cols(t)]
+                    cm = cmask_ref[cols(t)][None, :]
+                    c, share = terms(vm, xs, xl, t)
+                    xs_out[:, cols(t)] = clamp_s(xs + dt_col * dxs_of(xs, c, cm))
+                    xl_out[:, cols(t)] = clamp_l(xl + dt_col * dxl_of(c, cm))
+                    return dv + share, jnp.maximum(unsat, unsat_rows(c, cm))
+
+                dv, unsat = jax.lax.fori_loop(0, n_tiles, tile_body, (zeros_v, zeros_r))
+                barrier()
+                v = clamp_v(v + dt_col * dv)
+                return v, jnp.maximum(done, jnp.where(unsat < 0.5, 1.0, 0.0))
+
+            v, done = jax.lax.fori_loop(0, chunk_steps, step, (v_ref[...], done_ref[...]))
+            dt = dt_ref[...]
 
         else:
+            (c_scr,) = scratch
 
-            def step_one(v, xs, xl, dt, done):
-                dv, dxs, dxl, allsat = rhs(v, xs, xl)
-                advance = (done < 0.5) & ~allsat  # src/system.rs:122
-                dt_col = jnp.where(advance, dt, 0.0)
+            def step(_, carry):
+                v, dt, done = carry
+                live = done < 0.5
+                dt_c = jnp.where(live, dt, 0.0)[:, None]
+                h_c = 0.5 * dt_c
+                vm = split(v)
 
-                fv, fxs, fxl = update(v, xs, xl, dv, dxs, dxl, dt_col)
-                hv, hxs, hxl = update(v, xs, xl, dv, dxs, dxl, 0.5 * dt_col)
-                dv2, dxs2, dxl2, _ = rhs(hv, hxs, hxl)
-                tv, txs, txl = update(hv, hxs, hxl, dv2, dxs2, dxl2, 0.5 * dt_col)
+                def pass1(t, acc):
+                    dv, unsat = acc
+                    xs = xs_out[:, cols(t)]
+                    xl = xl_out[:, cols(t)]
+                    cm = cmask_ref[cols(t)][None, :]
+                    c, share = terms(vm, xs, xl, t)
+                    c_scr[:, cols(t)] = c
+                    return dv + share, jnp.maximum(unsat, unsat_rows(c, cm))
 
-                err = jnp.maximum(
-                    jnp.max(jnp.abs(fv - tv), axis=1, keepdims=True),
-                    jnp.maximum(
-                        jnp.max(jnp.abs(fxs - txs), axis=1, keepdims=True),
-                        jnp.max(jnp.abs(fxl - txl), axis=1, keepdims=True),
-                    ),
+                dv1, unsat = jax.lax.fori_loop(0, n_tiles, pass1, (zeros_v, zeros_r))
+                allsat = unsat < 0.5
+                advance = live & ~allsat  # src/system.rs:122
+                adv = advance[:, None]
+                # the full trial step waits in v_out until pass 2 is done
+                v_out[...] = clamp_v(v + dt_c * dv1)
+                hv = clamp_v(v + h_c * dv1)
+                hvm = split(hv)
+                barrier()
+
+                def pass2(t, acc):
+                    dv, err = acc
+                    xs = xs_out[:, cols(t)]
+                    xl = xl_out[:, cols(t)]
+                    c1 = c_scr[:, cols(t)]
+                    cm = cmask_ref[cols(t)][None, :]
+                    d_xs = dxs_of(xs, c1, cm)
+                    d_xl = dxl_of(c1, cm)
+                    hxs = clamp_s(xs + h_c * d_xs)
+                    hxl = clamp_l(xl + h_c * d_xl)
+                    c2, share = terms(hvm, hxs, hxl, t)
+                    txs = clamp_s(hxs + h_c * dxs_of(hxs, c2, cm))
+                    txl = clamp_l(hxl + h_c * dxl_of(c2, cm))
+                    err = jnp.maximum(err, jnp.max(jnp.abs(clamp_s(xs + dt_c * d_xs) - txs), axis=1))
+                    err = jnp.maximum(err, jnp.max(jnp.abs(clamp_l(xl + dt_c * d_xl) - txl), axis=1))
+                    xs_out[:, cols(t)] = jnp.where(adv, txs, xs)
+                    xl_out[:, cols(t)] = jnp.where(adv, txl, xl)
+                    return dv + share, err
+
+                dv2, err = jax.lax.fori_loop(0, n_tiles, pass2, (zeros_v, zeros_r))
+                barrier()
+                tv = clamp_v(hv + h_c * dv2)
+                err = jnp.maximum(err, jnp.max(jnp.abs(v_out[...] - tv), axis=1))
+                new_dt = jnp.minimum(
+                    jnp.maximum(dt * jnp.sqrt(tol / jnp.maximum(err, 1e-30)), DT_MIN), DT_MAX
                 )
-                new_dt = jnp.clip(
-                    dt * jnp.sqrt(tol / jnp.maximum(err, 1e-30)), DT_MIN, DT_MAX
-                )
-                v = jnp.where(advance, tv, v)
-                xs = jnp.where(advance, txs, xs)
-                xl = jnp.where(advance, txl, xl)
+                v = jnp.where(adv, tv, v)
                 dt = jnp.where(advance, new_dt, dt)
-                done = jnp.maximum(done, allsat.astype(done.dtype))
-                return v, xs, xl, dt, done
+                done = jnp.maximum(done, jnp.where(allsat, 1.0, 0.0))
+                barrier()
+                return v, dt, done
 
-        # the trajectory block is processed as `interleave` independent
-        # row tiles per step: each tile's (matmul -> VPU -> matmul -> VPU)
-        # chain has no dependency on its siblings, so Mosaic's scheduler
-        # can overlap tile A's MXU passes with tile B's vector work —
-        # the kernel is otherwise VPU-bound with the MXU idling between
-        # passes. Tiles live in the fori_loop carry, so no re-slicing or
-        # concatenation happens per step.
-        Bb = v_ref.shape[0]
-        H = interleave if interleave > 0 and Bb % interleave == 0 else 1
-        Bh = Bb // H
-        rows_h = lambda h: pl.ds(h * Bh, Bh)  # noqa: E731
-
-        if fixed and H > 1:
-            # stage-interleaved: emit every tile's forward matmul first,
-            # then the per-tile vector work + scatter, then the updates —
-            # adjacent independent MXU/VPU work gives the scheduler
-            # overlap windows that tile-sequential emission denies it
-            def body(_, carry):
-                vals = [forward(sub[0]) for sub in carry]
-                rhss = [
-                    rhs_from_vals(va, sub[0], sub[1], sub[2])
-                    for sub, va in zip(carry, vals)
-                ]
-                outs = []
-                for (v, xs, xl, dt, done), (dv, dxs, dxl, allsat) in zip(carry, rhss):
-                    active = done < 0.5
-                    dt_col = jnp.where(active, dt_fixed, 0.0)
-                    v, xs, xl = update(v, xs, xl, dv, dxs, dxl, dt_col)
-                    done = jnp.maximum(done, allsat.astype(done.dtype))
-                    outs.append((v, xs, xl, dt, done))
-                return tuple(outs)
-
-        else:
-
-            def body(_, carry):
-                return tuple(step_one(*sub) for sub in carry)
-
-        carry = tuple(
-            (
-                v_ref[rows_h(h)],
-                xs_ref[rows_h(h)],
-                xl_ref[rows_h(h)],
-                dt_ref[rows_h(h)],
-                done_ref[rows_h(h)],
+            v, dt, done = jax.lax.fori_loop(
+                0, chunk_steps, step, (v_ref[...], dt_ref[...], done_ref[...])
             )
-            for h in range(H)
-        )
-        out = jax.lax.fori_loop(0, chunk_steps, body, carry)
-        for h in range(H):
-            v, xs, xl, dt, done = out[h]
-            v_out[rows_h(h)] = v
-            xs_out[rows_h(h)] = xs
-            xl_out[rows_h(h)] = xl
-            dt_out[rows_h(h)] = dt
-            done_out[rows_h(h)] = done
+
+        v_out[...] = v
+        dt_out[...] = dt
+        done_out[...] = done
 
     def raw(state, G, bias, cmask):
-        B_in = state.v.shape[0]
-        # pad odd batches up to a multiple of the trajectory block with
-        # frozen dummy rows — falling back to tiny blocks instead costs
-        # ~25x (measured: uf250 at B=7049 ran 8-row blocks at 1.2e6
-        # traj*steps/s vs 3.1e7 padded)
-        Bb = traj_block
-        while Bb > 8 and Bb > B_in:
-            Bb //= 2
-        pad = (-B_in) % Bb
-        if pad:
-            pad_row = lambda x, fill: jnp.concatenate(  # noqa: E731
-                [x, jnp.full((pad,) + x.shape[1:], fill, dtype=x.dtype)], axis=0
-            )
-            state = type(state)(
-                v=pad_row(state.v, 0.0),
-                xs=pad_row(state.xs, 0.5),
-                xl=pad_row(state.xl, 1.0),
-                dt=pad_row(state.dt, 0.0),
-                done=pad_row(state.done, True),
-            )
-        B = B_in + pad
-        grid = (B // Bb,)
-        dt_col = state.dt.astype(jnp.float32).reshape(B, 1)
-        done_col = state.done.astype(jnp.float32).reshape(B, 1)
-
-        row = lambda i: (i, 0)  # noqa: E731
-        fixed_blk = lambda shape: pl.BlockSpec(shape, row, memory_space=pltpu.VMEM)  # noqa: E731
-        const_blk = lambda shape: pl.BlockSpec(  # noqa: E731
-            shape, lambda i: (0, 0), memory_space=pltpu.VMEM
-        )
-
-        v, xs, xl, dt_o, done_o = pallas_call_32bit(
-            kernel,
-            grid=grid,
-            in_specs=[
-                fixed_blk((Bb, Np)),
-                fixed_blk((Bb, Mp)),
-                fixed_blk((Bb, Mp)),
-                fixed_blk((Bb, 1)),
-                fixed_blk((Bb, 1)),
-                const_blk((Np, K * Mp)),
-                const_blk((1, K * Mp)),
-                const_blk((1, Mp)),
-            ],
-            out_specs=[
-                fixed_blk((Bb, Np)),
-                fixed_blk((Bb, Mp)),
-                fixed_blk((Bb, Mp)),
-                fixed_blk((Bb, 1)),
-                fixed_blk((Bb, 1)),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((B, Np), jnp.float32),
-                jax.ShapeDtypeStruct((B, Mp), jnp.float32),
-                jax.ShapeDtypeStruct((B, Mp), jnp.float32),
-                jax.ShapeDtypeStruct((B, 1), jnp.float32),
-                jax.ShapeDtypeStruct((B, 1), jnp.float32),
-            ],
-            interpret=interpret,
-            compiler_params=pltpu.CompilerParams(
-                # Mosaic's 16MB scoped default; larger trajectory blocks
-                # (bigger MXU tiles, +13% on the aim100 headline at 512)
-                # need headroom for the in/out/pipeline state copies
-                vmem_limit_bytes=64 * 1024 * 1024,
-            ),
-            cost_estimate=pl.CostEstimate(
-                flops=4 * K * B * Np * Mp * chunk_steps * (1 if fixed else 2),
-                bytes_accessed=(B * (Np + 2 * Mp) * 4) * 2,
-                transcendentals=0,
-            ),
-        )(state.v, state.xs, state.xl, dt_col, done_col, G, bias, cmask)
-
         from odesat_tpu.models.ode import ODEState
 
+        B_in = state.v.shape[0]
+        Bb = traj_block(B_in, Np2, n_parts)
+        pad = (-B_in) % Bb
+        v = state.v.astype(jnp.float32)
+        if Np2 != Np:
+            v = jnp.pad(v, ((0, 0), (0, Np2 - Np)))
+        xs, xl = state.xs, state.xl
+        dt = state.dt.astype(jnp.float32)
+        done = state.done.astype(jnp.float32)
+        if pad:
+            # frozen dummy rows: done, dt 0, in-range state
+            v = jnp.pad(v, ((0, pad), (0, 0)))
+            xs = jnp.pad(xs, ((0, pad), (0, 0)), constant_values=0.5)
+            xl = jnp.pad(xl, ((0, pad), (0, 0)), constant_values=1.0)
+            dt = jnp.pad(dt, (0, pad))
+            done = jnp.pad(done, (0, pad), constant_values=1.0)
+        B = B_in + pad
+
+        rows = lambda shape: pl.BlockSpec(shape, lambda i: (i,) + (0,) * (len(shape) - 1))  # noqa: E731
+        whole = lambda shape: pl.BlockSpec(shape, lambda i: (0,) * len(shape))  # noqa: E731
+        out_specs = [rows((Bb, Np2)), rows((Bb, Mp)), rows((Bb, Mp)), rows((Bb,)), rows((Bb,))]
+        out_shape = [
+            jax.ShapeDtypeStruct((B, Np2), jnp.float32),
+            jax.ShapeDtypeStruct((B, Mp), jnp.float32),
+            jax.ShapeDtypeStruct((B, Mp), jnp.float32),
+            jax.ShapeDtypeStruct((B,), jnp.float32),
+            jax.ShapeDtypeStruct((B,), jnp.float32),
+        ]
+        if not fixed:
+            out_specs.append(rows((Bb, Mp)))  # per-tile clause values between passes
+            out_shape.append(jax.ShapeDtypeStruct((B, Mp), jnp.float32))
+        passes = (1 if fixed else 2) * n_parts
+        outs = pallas_call_32bit(
+            kernel,
+            grid=(B // Bb,),
+            in_specs=[
+                rows((Bb, Np2)), rows((Bb, Mp)), rows((Bb, Mp)), rows((Bb,)), rows((Bb,)),
+                whole((Np2, K * Mp)), whole((K * Mp,)), whole((Mp,)),
+            ],
+            out_specs=out_specs,
+            out_shape=out_shape,
+            backend="triton",
+            interpret=interpret,
+            compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS, num_stages=1),
+            cost_estimate=pl.CostEstimate(
+                flops=4 * K * B * Np2 * Mp * chunk_steps * passes,
+                bytes_accessed=B * (Np2 + 2 * Mp) * 4 * 2,
+                transcendentals=0,
+            ),
+            name="odesat_fused_chunk",
+        )(v, xs, xl, dt, done, G, bias, cmask)
+        v_o, xs_o, xl_o, dt_o, done_o = outs[:5]
         return ODEState(
-            v=v[:B_in],
-            xs=xs[:B_in],
-            xl=xl[:B_in],
-            dt=dt_o.reshape(B)[:B_in].astype(state.dt.dtype),
-            done=done_o.reshape(B)[:B_in] > 0.5,
+            v=v_o[:B_in, :Np].astype(state.v.dtype),
+            xs=xs_o[:B_in],
+            xl=xl_o[:B_in],
+            dt=dt_o[:B_in].astype(state.dt.dtype),
+            done=done_o[:B_in] > 0.5,
         )
 
     jitted = jax.jit(raw, donate_argnums=0 if donate else ())

@@ -1,18 +1,15 @@
-"""Trace-time dtype guard for Pallas kernel invocations.
+"""Helpers shared by Pallas kernel wrappers.
 
-Every kernel in this package is written for 32-bit state, but Python
-scalar constants inside a kernel body trace at the PROCESS default
-width: with ``jax_enable_x64`` on (models/ode.py ``_dtype`` flips it
-process-wide when a user asks for an f64 scan-path solve; users can
-also set it themselves), semaphore/slot indices trace as weak i64 and
-float constants as weak f64 — and Mosaic cannot lower either
-(``memref_slice`` rejects i64 indices; 64<->32-bit converts recurse in
-the lowering). The kernels' inputs are all 32-bit, so disabling x64
-around each ``pallas_call`` invocation restores the exact 32-bit trace
-the kernels are written for, with zero effect on the x64-off path.
-
-Found by tools/aot_collective.py's AOT compile under the x64-enabled
-test harness — the compile-time failure class that check exists for.
+``pallas_call_32bit``: the kernels are written for 32-bit state, but
+Python scalar constants and loop indices inside a kernel body trace at
+the PROCESS default width. With ``jax_enable_x64`` on (models/ode.py
+``_dtype`` flips it process-wide when a user asks for an f64 scan-path
+solve, and the test harness turns it on), float constants would trace as
+weak f64 and loop indices as i64: ``jnp.where(cond, 1.0, 0.0)`` comes out
+f64, and the fused kernel's loop carries change dtype, which tracing
+rejects. The kernels' inputs are all 32-bit, so
+disabling x64 around each ``pallas_call`` invocation restores the exact
+32-bit trace the kernels are written for, with no effect when x64 is off.
 """
 
 from __future__ import annotations
@@ -29,8 +26,7 @@ def trace_32bit():
 
 def pallas_call_32bit(*args, **kwargs):
     """``pl.pallas_call`` whose invocation (kernel-body and index-map
-    tracing included) runs under :func:`trace_32bit`. Every kernel in
-    this package invokes pallas_call through this wrapper."""
+    tracing included) runs under :func:`trace_32bit`."""
     inner = pl.pallas_call(*args, **kwargs)
 
     def invoke(*a, **k):

@@ -1,12 +1,12 @@
 """The memcomputing ODE right-hand side as one fused XLA computation.
 
-TPU-first redesign of the reference's per-clause scalar loop
+Batched redesign of the reference's per-clause scalar loop
 (reference: src/system.rs:25-91). The reference walks each clause's
 literal list with a scratch slab tracking min / second-min; here the same
 math is expressed as dense masked array ops over the padded ``(K, M)``
 incidence layout so XLA fuses the whole RHS into a handful of
 vector-unit passes, and the per-variable accumulation of clause
-contributions becomes a gather+sum (or MXU one-hot matmul) instead of a
+contributions becomes a gather+sum (or one-hot matmul) instead of a
 scatter.
 
 Per clause m with literals (q_i, v_i):
@@ -75,7 +75,7 @@ def top2_min(vals):
 
 def accumulate_dv_gather(contrib_flat, var_occ, occ_mask):
     """dv via variable-major gather+sum: contrib_flat (..., K*M),
-    var_occ/occ_mask (N, D) -> (..., N). Gathers beat scatters on TPU."""
+    var_occ/occ_mask (N, D) -> (..., N). Deterministic: no atomics."""
     picked = contrib_flat[..., var_occ]  # (..., N, D)
     return jnp.sum(picked * occ_mask, axis=-1)
 
@@ -91,14 +91,14 @@ def accumulate_dv_segment(contrib_flat, lit_var_flat, n_vars_padded):
 
 
 def accumulate_dv_onehot(contrib_flat, onehot):
-    """dv via MXU matmul against the constant one-hot incidence matrix
-    (K*M, N). Wastes flops but rides the systolic array; wins for small N."""
+    """dv via matmul against the constant one-hot incidence matrix
+    (K*M, N). Wastes flops but rides the matrix units; for small N."""
     return jnp.dot(
         contrib_flat,
         onehot,
         preferred_element_type=contrib_flat.dtype,
-        # true f32: the TPU default silently truncates matmul inputs to
-        # bf16, breaking parity with the gather/segment_sum strategies
+        # true f32: a default-precision f32 matmul may run in TF32 on a
+        # GPU, breaking parity with the gather/segment_sum strategies
         precision=jax.lax.Precision.HIGHEST,
     )
 
@@ -217,7 +217,7 @@ def compute_derivatives(
 
 
 def build_onehot(lit_var, lit_mask, n_vars_padded, dtype=jnp.float32):
-    """Constant (K*M, N) one-hot incidence matrix for the MXU strategy."""
+    """Constant (K*M, N) one-hot incidence matrix for the onehot strategy."""
     flat_var = lit_var.reshape(-1)
     flat_mask = lit_mask.reshape(-1)
     cols = jax.lax.broadcasted_iota(jnp.int32, (flat_var.shape[0], n_vars_padded), 1)

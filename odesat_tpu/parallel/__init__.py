@@ -1,6 +1,6 @@
 """Multi-device execution: mesh construction, trajectory-sharded solves
 (data parallelism), and clause-sharded RHS evaluation (model parallelism
-with psum over ICI). No reference counterpart exists — the reference is
+with a psum across devices). No reference counterpart exists — the reference is
 single-threaded (SURVEY.md §2b)."""
 
 from odesat_tpu.parallel.mesh import make_mesh, replicated, traj_sharding

@@ -1,22 +1,22 @@
-"""Host<->global-array plumbing for multi-process (pod) runs.
+"""Host<->global-array plumbing for multi-process runs.
 
 On a single process these helpers degrade to ``jax.device_put`` /
-``np.asarray`` exactly; on a pod (``jax.process_count() > 1``) they do
+``np.asarray`` exactly; across processes (``jax.process_count() > 1``) they do
 what multi-host JAX requires instead:
 
 * **placing** a host-local value onto a mesh that spans processes needs
   ``jax.make_array_from_callback`` (each process contributes the shards
   its local devices own — ``device_put`` of a host array onto a
   non-addressable sharding is an error);
-* **pulling** a global array back to the host needs an allgather over
-  DCN (``multihost_utils.process_allgather``) because ``np.asarray`` can
+* **pulling** a global array back to the host needs an allgather
+  across processes (``multihost_utils.process_allgather``) because ``np.asarray`` can
   only read addressable shards.
 
 The reference has no distributed anything (SURVEY.md §2b); this module
 is the thin waist that lets the chunked host loop (models/loop.py) and
-the CLI drive a pod unchanged — the between-chunk done-flag pull is the
-ONLY recurring cross-host transfer, everything else inside the step
-rides ICI collectives.
+the CLI drive a multi-host job unchanged — the between-chunk done-flag
+pull is the ONLY recurring cross-host transfer, everything else inside
+the step rides the devices' own collectives.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """Device-mesh construction for trajectory and clause parallelism.
 
-The reference is single-process, single-threaded (SURVEY.md §2b); the TPU
+The reference is single-process, single-threaded (SURVEY.md §2b); this
 build scales two ways:
 
 * ``traj`` axis — pure data parallelism over independent trajectories
   (the restart/interlace batch), no communication except the tiny solved
   flag reduce between chunks;
 * ``clause`` axis — for huge CNFs, the padded clause arrays shard over
-  devices and per-variable dv contributions are psum-reduced over ICI.
+  devices and per-variable dv contributions are psum-reduced across
+  them. Every GPU of a host reaches every other at the same rate, so the
+  mesh is a plain reshape of ``jax.devices()``.
 """
 
 from __future__ import annotations

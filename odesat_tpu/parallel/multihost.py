@@ -1,12 +1,12 @@
 """Multi-host initialization glue.
 
-The reference has no distributed anything (SURVEY.md §2b); on a TPU pod
-slice the TPU-native equivalent is ``jax.distributed.initialize`` +
-a global mesh whose ``traj`` axis spans hosts. Trajectory parallelism
-needs no cross-host communication inside the step — only the
-between-chunk done-flag reduce rides DCN — so scaling across hosts is
-embarrassingly parallel. Clause sharding should stay *within* a host's
-ICI domain; ``make_pod_mesh`` lays the mesh out accordingly.
+The reference has no distributed anything (SURVEY.md §2b); across hosts
+the equivalent is ``jax.distributed.initialize`` + a global mesh whose
+``traj`` axis spans hosts. Trajectory parallelism needs no cross-host
+communication inside the step — only the between-chunk done-flag reduce
+crosses hosts — so scaling across hosts is embarrassingly parallel.
+Clause sharding should stay *within* one host, where its devices share
+NVLink; ``make_pod_mesh`` lays the mesh out accordingly.
 
 Tested for real in tests/test_multihost.py: two coordinated CPU
 processes (`jax.distributed.initialize` with an explicit coordinator)
@@ -35,46 +35,32 @@ def initialize_distributed(
     The cluster-present decision is structural, not message-sniffed:
     when no cluster environment markers exist, any auto-detect failure
     means "single process" and is swallowed; when markers ARE present
-    (a real pod/Slurm/MPI job) every failure propagates — a
+    (a real Slurm/MPI job) every failure propagates — a
     misconfigured cluster must not silently degrade to N disconnected
-    single-process replicas (round-1 ADVICE)."""
+    single-process replicas."""
     if coordinator_address is None and num_processes is None and process_id is None:
         import os
 
         cluster_markers = (
-            "MEGASCALE_COORDINATOR_ADDRESS",
-            "TPU_WORKER_HOSTNAMES",
             "JAX_COORDINATOR_ADDRESS",
             "COORDINATOR_ADDRESS",
             "SLURM_JOB_ID",
             "OMPI_COMM_WORLD_SIZE",
         )
 
-        def _marker_set(name: str) -> bool:
-            # single-chip images export placeholder values ("WARNING:
-            # could not determine ...", or a lone "localhost") — treat
-            # only plausible multi-host values as a cluster signal
-            val = os.environ.get(name, "")
-            if not val or val.upper().startswith("WARNING"):
-                return False
-            if name == "TPU_WORKER_HOSTNAMES":
-                # a pod lists several workers; one local name is not a pod
-                return "," in val
-            return True
-
-        in_cluster_env = any(_marker_set(m) for m in cluster_markers)
+        in_cluster_env = any(os.environ.get(m) for m in cluster_markers)
 
         try:
             from jax._src import xla_bridge
 
             if xla_bridge.backends_are_initialized():
                 # too late to initialize distributed (jax refuses after
-                # backend init): on a real pod that's a programming
-                # error worth surfacing; single-process it's a no-op
+                # backend init): in a real cluster job that's a programming
+                # error worth surfacing; single-process it is a no-op
                 if in_cluster_env:
                     raise RuntimeError(
                         "initialize_distributed() must run before any JAX "
-                        "computation on a pod (the XLA backend is already "
+                        "computation in a cluster job (the XLA backend is already "
                         "initialized)"
                     )
                 return
@@ -82,7 +68,7 @@ def initialize_distributed(
             pass
 
         try:
-            jax.distributed.initialize()  # cluster auto-detection (TPU pods)
+            jax.distributed.initialize()  # cluster auto-detection (Slurm, MPI)
         except (ValueError, RuntimeError):
             if in_cluster_env:
                 raise
@@ -103,7 +89,7 @@ def make_pod_mesh(n_clause: int = 1) -> Mesh:
     """Global ('traj', 'clause') mesh over every device in the job.
 
     The clause axis is filled from devices of the same process first so
-    its psum collectives ride ICI; the traj axis spans the rest
+    its psum collectives stay inside one host; the traj axis spans the rest
     (including host boundaries — fine, it never communicates inside the
     step)."""
     devices = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))

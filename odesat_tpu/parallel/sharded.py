@@ -8,8 +8,9 @@ Two axes of parallelism (SURVEY.md §2b — the reference has neither):
 * ``clause``: for CNFs whose incidence arrays dwarf one chip, the padded
   clause axis shards over devices. Inside shard_map each device computes
   its clauses' contributions; per-variable dv segments are psum-reduced
-  over ICI, the allsat flag is an AND-reduce, and the adaptive error norm
-  a pmax (see make_step_fn's clause_axis handling in models/ode.py).
+  (XLA hands the collective to NCCL on GPUs), the allsat flag is an
+  AND-reduce, and the adaptive error norm a pmax (see make_step_fn's
+  clause_axis handling in models/ode.py).
 
 Validated without hardware via
 ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` (SURVEY.md §4).
@@ -43,78 +44,24 @@ DEV_SPECS = FormulaDevice(
     clause_mask=P("clause"),
     var_occ=P(),  # only used unsharded; replicated
     occ_mask=P(),
-    planes=P("clause"),  # per-shard streaming planes (leading shard axis)
-    span_lo=P("clause"),
-    span_bias=P("clause"),
 )
-
-
-def _dev_specs(has_plan: bool) -> FormulaDevice:
-    """DEV_SPECS with None for the plan arrays when absent — tree.map /
-    jit-shardings over (dev, specs) need matching structures, and None
-    is an empty pytree node."""
-    if has_plan:
-        return DEV_SPECS
-    return FormulaDevice(*DEV_SPECS[:6], planes=None, span_lo=None, span_bias=None)
-
-
-def dev_specs_for(dev: FormulaDevice) -> FormulaDevice:
-    return _dev_specs(dev.planes is not None)
 
 
 def compile_for_mesh(formula, config: SolverConfig, mesh: Mesh) -> FormulaArrays:
     """Compile with padding compatible with the mesh: the clause axis must
-    divide evenly across the 'clause' dimension.
-
-    With a non-trivial clause axis and an eligible formula (no unit
-    clauses), the clause layout comes from
-    ops/shard_stream.compile_stream_sharded — identical per-shard
-    segments whose planes feed the clause-sharded streaming kernel; the
-    resulting FormulaArrays is an ordinary one (the scan fallback runs
-    it unchanged) carrying its StreamShardPlan in ``fa.shard_plan``."""
-    n_clause = mesh.shape.get("clause", 1)
-    # only pick the shard-plan layout when the runner will actually be
-    # eligible to use it — otherwise the multi-segment bucket slices
-    # would strand the formula on a path the scan fallback can't run
-    # (its bucket coords are global, shard_map slices are local)
-    kernel_eligible = (
-        config.ode.dtype == "float32"
-        and not (config.ode.dt_mode == "shared" and config.ode.step_size is None)
-    )
-    if n_clause > 1 and kernel_eligible and config.ode.dv_strategy in ("auto", "stream"):
-        from odesat_tpu.ops.shard_stream import (
-            compile_stream_sharded,
-            stream_shard_supported,
-        )
-
-        fa, plan = compile_stream_sharded(
-            formula,
-            n_clause,
-            var_pad=config.var_pad,
-            bucket=config.bucket != "off",
-            window_sort=config.window_sort,
-        )
-        itemsize = 2 if config.ode.matmul_dtype == "bfloat16" else 4
-        if stream_shard_supported(fa, plan, itemsize):
-            return fa
-        # ineligible (unit clauses, budget): fall through to the plain
-        # layout the scan path needs (single full-width bucket)
-    clause_pad = config.clause_pad * n_clause
+    divide evenly across the 'clause' dimension."""
+    clause_pad = config.clause_pad * mesh.shape.get("clause", 1)
     return compile_formula(formula, clause_pad=clause_pad, var_pad=config.var_pad)
 
 
 def shard_inputs(state: ODEState, dev: FormulaDevice, mesh: Mesh):
     """Lay out the state and incidence arrays on the mesh (multi-host
-    aware: on a pod each process contributes its local shards)."""
+    aware: each process contributes its local shards)."""
     from odesat_tpu.parallel.dist import put_global
 
-    state = jax.tree.map(
-        lambda x, spec: put_global(x, NamedSharding(mesh, spec)), state, STATE_SPECS
-    )
+    state = shard_state(state, mesh)
     dev = jax.tree.map(
-        lambda x, spec: put_global(x, NamedSharding(mesh, spec)),
-        dev,
-        dev_specs_for(dev),
+        lambda x, spec: put_global(x, NamedSharding(mesh, spec)), dev, DEV_SPECS
     )
     return state, dev
 
@@ -125,159 +72,6 @@ def shard_state(state: ODEState, mesh: Mesh) -> ODEState:
     return jax.tree.map(
         lambda x, spec: put_global(x, NamedSharding(mesh, spec)), state, STATE_SPECS
     )
-
-
-def make_shard_chunk_sharded(
-    fa: FormulaArrays,
-    zeta: float,
-    ode: ODEConfig,
-    chunk_steps: int,
-    mesh: Mesh,
-    interpret: bool | None = None,
-):
-    """shard_map-wrapped whole-chunk clause-shard ODE kernel over a
-    ('traj', 'clause') mesh — the production `--shard-chunk` runner.
-    Shared by make_sharded_chunk_runner (execution) and
-    tools/aot_collective.py (AOT compile of the in-kernel butterfly
-    collective against a mock TPU topology, where ``interpret=False`` is
-    forced so Mosaic lowers the barrier semaphore and the MESH-addressed
-    remote DMAs without hardware)."""
-    from odesat_tpu.ops.shard_chunk import make_shard_chunk_call
-
-    chunk_call = make_shard_chunk_call(fa, zeta, ode, chunk_steps, interpret=interpret)
-
-    def chunk_local(state: ODEState, dev: FormulaDevice) -> ODEState:
-        v, xs, xl, dt, done = chunk_call(
-            state.v, state.xs, state.xl, state.dt, state.done,
-            dev.planes[0], dev.span_lo[0], dev.span_bias[0],
-            dev.clause_mask,
-        )
-        return ODEState(v, xs, xl, dt, done)
-
-    sharded = shard_map(
-        chunk_local,
-        mesh=mesh,
-        in_specs=(STATE_SPECS, _dev_specs(True)),
-        out_specs=STATE_SPECS,
-        check_vma=False,
-    )
-    return jax.jit(sharded, donate_argnums=0)
-
-
-def make_stoch_shard_chunk_sharded(
-    fa: FormulaArrays,
-    chunk_steps: int,
-    mesh: Mesh,
-    matmul_dtype: str = "float32",
-    interpret: bool | None = None,
-):
-    """shard_map-wrapped whole-chunk clause-shard stoch kernel — the
-    production stoch `--shard-chunk` runner. Returns
-    ``(jitted, state_specs, arg_specs)``; the caller lays out the plan
-    arrays per ``arg_specs``. Shared by make_sharded_stoch_runner
-    (execution) and tools/aot_collective.py (AOT compile, see
-    make_shard_chunk_sharded)."""
-    import jax.numpy as jnp
-
-    from odesat_tpu.models.stoch import StochState
-    from odesat_tpu.ops.stoch_pallas import make_stoch_shard_chunk
-
-    chunk_call = make_stoch_shard_chunk(
-        fa, chunk_steps, matmul_dtype=matmul_dtype, interpret=interpret
-    )
-
-    def chunk_local(state: StochState, args) -> StochState:
-        planes, lo, sbias, nsign, cmask = args
-        # the per-traj key is replicated over the clause axis, so every
-        # clause shard derives the SAME seed and the in-kernel PRNG
-        # streams agree
-        key, sub = jax.random.split(state.key[0])
-        seed = jax.random.randint(sub, (1,), 0, 2**31 - 1, dtype=jnp.int32)
-        v, xl, done = chunk_call(
-            state.v.astype(jnp.float32),
-            state.xl.astype(jnp.float32),
-            state.done,
-            seed,
-            planes[0], lo[0], sbias[0], nsign[0], cmask,
-        )
-        return StochState(v > 0.5, xl.astype(jnp.int32), done, key[None])
-
-    state_specs = StochState(
-        v=P("traj"), xl=P("traj", "clause"), done=P("traj"), key=P("traj")
-    )
-    arg_specs = (P("clause"), P("clause"), P("clause"), P("clause"), P("clause"))
-    sharded = shard_map(
-        chunk_local,
-        mesh=mesh,
-        in_specs=(state_specs, arg_specs),
-        out_specs=state_specs,
-        check_vma=False,
-    )
-    return jax.jit(sharded, donate_argnums=0), state_specs, arg_specs
-
-
-def _collective_consistency_check(fa, zeta, ode, mesh, state, dev) -> None:
-    """One-step cross-check of the in-kernel butterfly all-reduce
-    against the XLA-psum per-step path, run before the first real chunk
-    of a whole-chunk collective run on hardware.
-
-    The butterfly's compiled form (entry barrier, MESH-addressed remote
-    DMA) cannot execute anywhere but a real multi-chip slice, so its
-    first-ever execution is in production; a latent bug would manifest
-    as silent state corruption across shards. Advancing the same state
-    one step through both paths and comparing bounds the blast radius to
-    a loud error on the first chunk instead. One step keeps the
-    comparison numerically tight (chunk-length runs diverge chaotically)
-    and, being odd, exercises the parity-flush tail too."""
-    import dataclasses as _dc
-
-    import jax.numpy as jnp
-    import numpy as np
-
-    from odesat_tpu.parallel.dist import fetch
-
-    ref_runner = make_sharded_chunk_runner(
-        fa, zeta, _dc.replace(ode, shard_chunk="off"), 1, mesh
-    )
-    test_runner = make_shard_chunk_sharded(fa, zeta, ode, 1, mesh)
-    # both runners donate their inputs; feed copies so the caller's
-    # state survives for the real chunk
-    out_ref = ref_runner(jax.tree.map(jnp.copy, state), dev)
-    out_test = test_runner(jax.tree.map(jnp.copy, state), dev)
-    for name in ("v", "xs", "xl"):
-        a = np.asarray(fetch(getattr(out_ref, name)))
-        b = np.asarray(fetch(getattr(out_test, name)))
-        if not np.allclose(a, b, rtol=1e-3, atol=1e-5):
-            diff = float(np.max(np.abs(a.astype(np.float64) - b.astype(np.float64))))
-            raise RuntimeError(
-                "shard_chunk collective consistency check FAILED: the "
-                f"in-kernel butterfly all-reduce disagrees with XLA's psum "
-                f"on '{name}' after one step (max abs diff {diff:.3e}). "
-                "The collective is corrupting state on this topology — do "
-                "not trust --shard-chunk results here; rerun with "
-                "--shard-chunk off and report the topology."
-            )
-
-
-def _with_consistency_check(runner, fa, zeta, ode, mesh):
-    """Wrap a whole-chunk collective runner so its FIRST invocation in
-    this process cross-checks the butterfly against XLA's psum (set
-    ODESAT_SKIP_COLLECTIVE_CHECK=1 to skip, e.g. after the topology has
-    been validated once)."""
-    import os
-
-    if os.environ.get("ODESAT_SKIP_COLLECTIVE_CHECK"):
-        return runner
-    checked = False
-
-    def run(state, dev):
-        nonlocal checked
-        if not checked:
-            checked = True
-            _collective_consistency_check(fa, zeta, ode, mesh, state, dev)
-        return runner(state, dev)
-
-    return run
 
 
 # Sharded programs shared across same-shaped instances (planes as jit
@@ -304,28 +98,15 @@ def _cache_program(pkey, build):
 
 
 def sharded_multi_supported(fa: FormulaArrays, ode: ODEConfig, mesh: Mesh) -> bool:
-    """Build-free eligibility check for make_sharded_multi_runner — the
-    same kernel-selection gates WITHOUT materializing the incidence
-    planes, so callers can probe per solve without paying a plane
-    construction + device transfer just to learn the answer."""
-    if mesh.shape.get("clause", 1) > 1:
-        return False
-    if ode.dt_mode == "shared" and ode.step_size is None:
-        return False
-    if ode.dv_strategy not in ("auto", "fused", "stream"):
-        return False
-    from odesat_tpu.ops.fused_pallas import fused_supported
-    from odesat_tpu.ops.stream_pallas import stream_supported
+    """Build-free eligibility check for make_sharded_multi_runner: the
+    device loop on a mesh needs the fused kernel's shape-shared core."""
+    from odesat_tpu.ops.select import gpu_available, kernel_eligible
 
-    itemsize = 2 if ode.matmul_dtype == "bfloat16" else 4
-    if ode.dv_strategy == "fused":
-        return fused_supported(fa, itemsize)
-    if ode.dv_strategy == "stream":
-        return stream_supported(fa, itemsize)
     return (
-        jax.default_backend() == "tpu"
-        and ode.dtype == "float32"
-        and (fused_supported(fa, itemsize) or stream_supported(fa, itemsize))
+        mesh.shape.get("clause", 1) == 1
+        and ode.dv_strategy in ("auto", "fused")
+        and gpu_available()
+        and kernel_eligible(fa, ode)
     )
 
 
@@ -340,38 +121,19 @@ def make_sharded_multi_runner(
 ):
     """Mesh twin of models/ode.make_multi_chunk_runner for trajectory-only
     (pure DP) meshes: one dispatch runs up to ``max_chunks`` chunks of the
-    Pallas chunk kernel per device inside a ``lax.while_loop``, with the
-    stop flag globally reduced over the ``traj`` axis every chunk (a tiny
-    pmax/pmin over ICI) so every device exits after the SAME chunk —
-    ``steps_advanced`` is uniform and exact. Returns ``state ->
-    (state, steps_advanced)`` or None when the config has no shape-cached
-    core kernel (scan path, clause meshes, shared-dt adaptive)."""
+    fused kernel per device inside a ``lax.while_loop``, with the stop
+    flag reduced over the ``traj`` axis every chunk (a tiny pmax/pmin)
+    so every device exits after the SAME chunk — ``steps_advanced`` is
+    uniform and exact. Returns ``state -> (state, steps_advanced)`` or
+    None when the config runs the scan path."""
     import jax.numpy as jnp
 
-    if mesh.shape.get("clause", 1) > 1:
+    if not sharded_multi_supported(fa, ode, mesh):
         return None
-    if ode.dt_mode == "shared" and ode.step_size is None:
-        return None
-    if ode.dv_strategy not in ("auto", "fused", "stream"):
-        return None
-    from odesat_tpu.ops.fused_pallas import fused_supported, make_fused_chunk
-    from odesat_tpu.ops.stream_pallas import make_stream_chunk, stream_supported
+    from odesat_tpu.ops.fused_pallas import make_fused_chunk
 
-    on_tpu_f32 = jax.default_backend() == "tpu" and ode.dtype == "float32"
-    itemsize = 2 if ode.matmul_dtype == "bfloat16" else 4
-    kernel = None
-    if ode.dv_strategy == "fused":
-        kernel = make_fused_chunk(fa, zeta, ode, chunk_steps, donate=False)
-    elif ode.dv_strategy == "stream":
-        kernel = make_stream_chunk(fa, zeta, ode, chunk_steps, donate=False)
-    elif on_tpu_f32 and fused_supported(fa, itemsize):
-        kernel = make_fused_chunk(fa, zeta, ode, chunk_steps, donate=False)
-    elif on_tpu_f32 and stream_supported(fa, itemsize):
-        kernel = make_stream_chunk(fa, zeta, ode, chunk_steps, donate=False)
-    core = getattr(kernel, "_core", None)
-    if core is None:
-        return None
-
+    kernel = make_fused_chunk(fa, zeta, ode, chunk_steps, donate=False)
+    core = kernel._core
     stop_all = stop_on == "all"
     pkey = ("dp_multi", kernel._cache_key, stop_on, _mesh_key(mesh))
 
@@ -417,179 +179,51 @@ def make_sharded_multi_runner(
 def make_sharded_chunk_runner(
     fa: FormulaArrays, zeta: float, ode: ODEConfig, chunk_steps: int, mesh: Mesh
 ):
-    """Jitted ``(state, dev) -> state`` over the mesh. With a trivial
-    clause axis this is plain DP (GSPMD partitions the batch); with
-    clause sharding the step runs under shard_map with explicit
-    collectives."""
+    """Jitted ``(state, dev) -> state`` over the mesh. On a
+    trajectory-only mesh the fused kernel (when ops/select picks it) runs
+    per device under shard_map, otherwise GSPMD partitions the scan path
+    over the batch; with clause sharding the scan step runs under
+    shard_map with explicit collectives."""
+    from odesat_tpu.ops.select import resolve_strategy
+
     n_clause = mesh.shape.get("clause", 1)
     clause_axis = "clause" if n_clause > 1 else None
-    shared_adaptive = ode.dt_mode == "shared" and ode.step_size is None
-    if shared_adaptive and ode.dv_strategy in ("fused", "stream"):
-        raise ValueError(
-            "dt_mode='shared' is not supported by the chunk kernels; "
-            "use dv_strategy='auto' (scan path) or per-trajectory dt"
-        )
+    strategy = resolve_strategy(fa, ode, clause_sharded=clause_axis is not None)
 
-    if clause_axis is not None and ode.dv_strategy == "fused":
-        # the resident kernel is a whole-chunk program — it cannot psum
-        # dv mid-step; an explicitly forced 'fused' must not be silently
-        # remapped (single-device make_chunk_runner raises likewise)
-        raise ValueError(
-            "dv_strategy='fused' does not support a clause mesh axis; "
-            "use dv_strategy='auto'/'stream' or a trajectory-only mesh"
-        )
+    if strategy == "fused":
+        # pure DP: each device runs the kernel on its batch slice. The
+        # incidence planes ride as jit ARGUMENTS and the program is
+        # cached per (kernel shape key, mesh): a closure-traced wrapper
+        # would bake the planes in as constants, one compile per
+        # same-shaped instance (see ops/kernelctx.wrap_chunk_runner)
+        from odesat_tpu.ops.fused_pallas import make_fused_chunk
 
-    fused_step = None
-    if clause_axis is not None and ode.dv_strategy in ("auto", "stream"):
-        # clause-sharded streaming kernel with in-kernel xs/xl Euler
-        # updates (ops/shard_stream.py); only the v update consumes the
-        # psum'd dv in XLA
-        from odesat_tpu.ops.shard_stream import (
-            make_fused_clause_step,
-            stream_shard_supported,
-        )
+        kernel = make_fused_chunk(fa, zeta, ode, chunk_steps)
+        core = kernel._core
+        extra = kernel._extra
+        pkey = ("dp_chunk", kernel._cache_key, _mesh_key(mesh))
 
-        plan = fa.shard_plan
-        itemsize = 2 if ode.matmul_dtype == "bfloat16" else 4
-        eligible = (
-            plan is not None
-            and plan.n_shards == n_clause
-            and ode.dtype == "float32"
-            and not shared_adaptive
-            and stream_shard_supported(fa, plan, itemsize)
-        )
-        if plan is not None and not eligible:
-            # a shard-plan layout can only run on the kernel — its
-            # multi-segment bucket slices would strand the scan fallback
-            # on a confusing bucket error; name the real mismatch instead
-            why = (
-                f"dtype={ode.dtype!r}" if ode.dtype != "float32"
-                else "dt_mode='shared' with the adaptive integrator" if shared_adaptive
-                else f"plan has {plan.n_shards} shards but the mesh {n_clause}"
-                if plan.n_shards != n_clause
-                else "the formula exceeds the kernel's VMEM/HBM budget"
+        def build():
+            sk = shard_map(
+                lambda state, *ex: core(state, *ex),
+                mesh=mesh,
+                in_specs=(STATE_SPECS,) + (P(),) * len(extra),
+                out_specs=STATE_SPECS,
+                check_vma=False,  # pallas_call outputs carry no vma info
             )
-            raise ValueError(
-                "this formula was compiled with a clause-shard plan but the "
-                f"run config is ineligible for the streaming kernel ({why}); "
-                "recompile via compile_for_mesh with the run-time config"
-            )
-        if ode.dv_strategy == "stream" and not eligible:
-            raise ValueError(
-                "dv_strategy='stream' on a clause mesh needs a formula "
-                "compiled via compile_for_mesh (clause-sharded plan) with "
-                "no unit clauses, dtype=float32, per-trajectory dt"
-            )
-        from odesat_tpu.ops.shard_chunk import (
-            resolve_shard_chunk,
-            shard_chunk_supported,
-        )
+            return jax.jit(lambda state, ex: sk(state, *ex), donate_argnums=0)
 
-        forced_on = ode.shard_chunk in ("on", True)
-        if eligible and resolve_shard_chunk(ode, plan, itemsize):
-            # whole-chunk clause-sharded kernel: dv all-reduced INSIDE
-            # the kernel via remote DMA (ops/shard_chunk.py); one launch
-            # per chunk instead of per step. 'auto' lands here only in
-            # the kernel's measured-winning regime (small plane sweeps —
-            # resolve_shard_chunk); 'on' forces it and errors loudly.
-            supported = shard_chunk_supported(fa, plan, ode, itemsize)
-            # the interpret-mode remote-DMA discharge supports ONE named
-            # mesh axis; off-TPU validation runs through the clause-only
-            # harness in tests/test_shard_chunk.py
-            runnable = jax.default_backend() == "tpu" or n_clause <= 1
-            if forced_on and not supported:
-                raise ValueError(
-                    "shard_chunk needs a power-of-two clause axis, f32 "
-                    "state, and per-trajectory dt"
-                )
-            if forced_on and not runnable:
-                raise ValueError(
-                    "shard_chunk with a clause axis needs real TPU "
-                    "hardware (interpret mode cannot simulate remote DMA "
-                    "under a two-axis mesh); validate via the clause-only "
-                    "test harness instead"
-                )
-            if supported and runnable:
-                runner = make_shard_chunk_sharded(fa, zeta, ode, chunk_steps, mesh)
-                if n_clause > 1:
-                    # the butterfly's compiled collective first executes
-                    # on real hardware: cross-check it against XLA's
-                    # psum on the first chunk (ADVICE r3)
-                    runner = _with_consistency_check(runner, fa, zeta, ode, mesh)
-                return runner
-            # 'auto' + ineligible/off-TPU: the per-step path below
-        elif forced_on and not eligible:
-            raise ValueError(
-                "shard_chunk='on' needs a clause-shard plan eligible for "
-                "the streaming kernel (compile via compile_for_mesh; f32 "
-                "state, per-trajectory dt)"
-            )
-        if eligible:
-            fused_step = make_fused_clause_step(fa, zeta, ode, clause_axis="clause")
+        jitted = _cache_program(pkey, build)
+        return lambda state, dev: jitted(state, extra)
 
-    if (
-        clause_axis is None
-        and not shared_adaptive
-        and ode.dv_strategy in ("auto", "fused", "stream")
-    ):
-        # trajectory-only mesh: the Pallas chunk kernels shard as pure DP —
-        # each device runs the kernel on its batch slice under shard_map
-        from odesat_tpu.ops.fused_pallas import fused_supported, make_fused_chunk
-        from odesat_tpu.ops.stream_pallas import make_stream_chunk, stream_supported
-
-        kernel = None
-        on_tpu_f32 = jax.default_backend() == "tpu" and ode.dtype == "float32"
-        itemsize = 2 if ode.matmul_dtype == "bfloat16" else 4
-        if ode.dv_strategy == "fused":
-            kernel = make_fused_chunk(fa, zeta, ode, chunk_steps)  # raises if unsupported
-        elif ode.dv_strategy == "stream":
-            kernel = make_stream_chunk(fa, zeta, ode, chunk_steps)  # raises if unsupported
-        elif on_tpu_f32 and fused_supported(fa, itemsize):
-            kernel = make_fused_chunk(fa, zeta, ode, chunk_steps)
-        elif on_tpu_f32 and stream_supported(fa, itemsize):
-            kernel = make_stream_chunk(fa, zeta, ode, chunk_steps)
-        if kernel is not None:
-            core = getattr(kernel, "_core", None)
-            if core is None:
-                sharded_kernel = shard_map(
-                    lambda state: kernel(state),
-                    mesh=mesh,
-                    in_specs=(STATE_SPECS,),
-                    out_specs=STATE_SPECS,
-                    check_vma=False,  # pallas_call outputs carry no vma info
-                )
-                return jax.jit(
-                    lambda state, dev: sharded_kernel(state), donate_argnums=0
-                )
-            # thread the incidence planes as jit ARGUMENTS and cache the
-            # program per (kernel shape key, mesh): a closure-traced
-            # wrapper bakes the planes in as constants — one remote
-            # compile per same-shaped instance (see
-            # ops/kernelctx.wrap_chunk_runner)
-            extra = kernel._extra
-            pkey = ("dp_chunk", kernel._cache_key, _mesh_key(mesh))
-
-            def build():
-                sk = shard_map(
-                    lambda state, *ex: core(state, *ex),
-                    mesh=mesh,
-                    in_specs=(STATE_SPECS,) + (P(),) * len(extra),
-                    out_specs=STATE_SPECS,
-                    check_vma=False,
-                )
-                return jax.jit(
-                    lambda state, ex: sk(state, *ex), donate_argnums=0
-                )
-
-            jitted = _cache_program(pkey, build)
-            return lambda state, dev: jitted(state, extra)
+    import dataclasses
 
     # traj_axis only matters inside shard_map for dt_mode="shared" (the
     # GSPMD jit path below reduces over the global batch automatically)
-    step = fused_step or make_step_fn(
+    step = make_step_fn(
         fa,
         zeta,
-        ode,
+        dataclasses.replace(ode, dv_strategy=strategy),
         clause_axis=clause_axis,
         traj_axis="traj" if clause_axis is not None else None,
     )
@@ -601,48 +235,35 @@ def make_sharded_chunk_runner(
         out, _ = jax.lax.scan(body, state, None, length=chunk_steps)
         return out
 
-    dspecs = _dev_specs(fa.shard_plan is not None)
     if clause_axis is None:
         return jax.jit(
             run_chunk,
             in_shardings=(
                 jax.tree.map(lambda s: NamedSharding(mesh, s), STATE_SPECS),
-                jax.tree.map(lambda s: NamedSharding(mesh, s), dspecs),
+                jax.tree.map(lambda s: NamedSharding(mesh, s), DEV_SPECS),
             ),
             out_shardings=jax.tree.map(lambda s: NamedSharding(mesh, s), STATE_SPECS),
             donate_argnums=0,
         )
 
     sharded = shard_map(
-        run_chunk,
-        mesh=mesh,
-        in_specs=(STATE_SPECS, dspecs),
-        out_specs=STATE_SPECS,
-        # the Pallas kernel outputs carry no varying-mesh-axes info
-        check_vma=fused_step is None,
+        run_chunk, mesh=mesh, in_specs=(STATE_SPECS, DEV_SPECS), out_specs=STATE_SPECS
     )
     return jax.jit(sharded, donate_argnums=0)
 
 
-def make_sharded_stoch_runner(
-    fa: FormulaArrays,
-    chunk_steps: int,
-    mesh: Mesh,
-    matmul_dtype: str = "float32",
-    shard_chunk: bool = False,
-):
-    """Trajectory-DP stoch chunk runner: each device runs the (kernel or
-    scan) chunk on its batch slice with its own PRNG key — chains are
-    independent, so the only cross-device traffic is the host's done
-    pull. The sharded state's ``key`` leading axis is the device axis
-    ((n_traj, 2) keys from jax.random.split), NOT a batch axis.
+def make_sharded_stoch_runner(fa: FormulaArrays, chunk_steps: int, mesh: Mesh):
+    """Trajectory-DP stoch chunk runner: each device runs the scan chunk
+    on its batch slice with its own PRNG key — chains are independent,
+    so the only cross-device traffic is the host's done pull. The
+    sharded state's ``key`` leading axis is the device axis ((n_traj, 2)
+    keys from jax.random.split), NOT a batch axis.
 
     With a non-trivial clause axis the incidence arrays and xl shard
     over it; the per-variable weight sums are psum-reduced and all-sat
-    AND-reduced inside shard_map (models/stoch.make_stoch_clause_step)
-    — the clause axis exists for CNFs whose incidence/weight arrays
-    exceed one chip, and those formulas get the stoch engine too
-    (round-2 VERDICT item 2).
+    AND-reduced inside shard_map (models/stoch.make_stoch_clause_step),
+    so CNFs whose incidence/weight arrays exceed one device get the
+    stoch engine too.
 
     Reference anchor: per-step chain independence, src/stoch.rs:26-78;
     the weight sums, src/stoch.rs:53-59.
@@ -655,129 +276,13 @@ def make_sharded_stoch_runner(
 
     n_clause = mesh.shape.get("clause", 1)
     if n_clause > 1:
-        import jax.numpy as jnp
-
         from odesat_tpu.models.ode import formula_device
         from odesat_tpu.parallel.dist import put_global
 
-        plan = fa.shard_plan
         specs = StochState(
             v=P("traj"), xl=P("traj", "clause"), done=P("traj"), key=P("traj")
         )
-        if plan is not None and plan.n_shards == n_clause:
-            # per-shard Pallas evaluation over the ODE plan's windowed
-            # planes (ops/stoch_pallas.make_stoch_shard_eval); only the
-            # weight-sum psums, the flip draw, and the (B,)-sized
-            # bookkeeping run in XLA. f32 partials are exact, so the
-            # flip stream matches the scan path bit for bit.
-            from odesat_tpu.ops.stoch_pallas import (
-                make_stoch_shard_eval,
-                stoch_shard_arrays,
-            )
-
-            ev = make_stoch_shard_eval(fa, matmul_dtype=matmul_dtype)
-            sbias_np, nsign_np = stoch_shard_arrays(fa)
-
-            if shard_chunk:
-                # whole-chunk variant: weight-sum all-reduce IN-kernel
-                # (butterfly over ICI remote DMA), one launch per chunk
-                from odesat_tpu.ops.stoch_pallas import (
-                    stoch_shard_chunk_supported,
-                )
-
-                if not stoch_shard_chunk_supported(
-                    fa, 2 if matmul_dtype == "bfloat16" else 4
-                ):
-                    raise ValueError(
-                        "stoch shard_chunk needs a power-of-two clause axis "
-                        "and the plan within the kernel's HBM/VMEM budget"
-                    )
-                if jax.default_backend() != "tpu":
-                    # same interpret-mode limitation as the ODE variant:
-                    # remote DMA discharges under ONE named mesh axis only
-                    # (clause-only harness in tests/test_shard_chunk.py)
-                    raise ValueError(
-                        "stoch shard_chunk with a clause axis needs real "
-                        "TPU hardware (interpret mode cannot simulate "
-                        "remote DMA under a two-axis mesh)"
-                    )
-                jitted, _, arg_specs = make_stoch_shard_chunk_sharded(
-                    fa, chunk_steps, mesh, matmul_dtype=matmul_dtype
-                )
-                mm = jnp.bfloat16 if matmul_dtype == "bfloat16" else jnp.float32
-                args = (
-                    jnp.asarray(plan.planes).astype(mm),
-                    jnp.asarray(plan.lo),
-                    jnp.asarray(sbias_np),
-                    jnp.asarray(nsign_np),
-                    jnp.asarray(fa.clause_mask),
-                )
-                args = tuple(
-                    put_global(a, NamedSharding(mesh, s))
-                    for a, s in zip(args, arg_specs)
-                )
-                return lambda state: jitted(state, args)
-
-            def kstep(state: StochState, args) -> StochState:
-                planes, lo, sbias, nsign, cmask = args
-                key, sub = jax.random.split(state.key)
-                active = ~state.done
-                tot, uns, xl_new, sat_all = ev(
-                    state.v.astype(jnp.float32),
-                    state.xl.astype(jnp.float32),
-                    active,
-                    planes[0], lo[0], sbias[0], nsign[0], cmask,
-                )
-                tot = jax.lax.psum(tot, "clause")
-                uns = jax.lax.psum(uns, "clause")
-                all_sat = (
-                    jax.lax.psum((~sat_all).astype(jnp.int32), "clause") == 0
-                )
-                u = jax.random.uniform(sub, tot.shape, dtype=jnp.float32)
-                flip = u * tot < uns
-                v = jnp.where(active[:, None] & flip, ~state.v, state.v)
-                done = state.done | all_sat
-                return StochState(v, xl_new.astype(jnp.int32), done, key)
-
-            def local(state: StochState, args) -> StochState:
-                st = StochState(state.v, state.xl, state.done, state.key[0])
-
-                def body(carry, _):
-                    return kstep(carry, args), None
-
-                out, _ = jax.lax.scan(body, st, None, length=chunk_steps)
-                return StochState(out.v, out.xl, out.done, out.key[None])
-
-            arg_specs = (P("clause"), P("clause"), P("clause"), P("clause"), P("clause"))
-            sharded = shard_map(
-                local,
-                mesh=mesh,
-                in_specs=(specs, arg_specs),
-                out_specs=specs,
-                check_vma=False,  # pallas outputs carry no vma info
-            )
-            jitted = jax.jit(sharded, donate_argnums=0)
-            mm = jnp.bfloat16 if matmul_dtype == "bfloat16" else jnp.float32
-            args = (
-                jnp.asarray(plan.planes).astype(mm),
-                jnp.asarray(plan.lo),
-                jnp.asarray(sbias_np),
-                jnp.asarray(nsign_np),
-                jnp.asarray(fa.clause_mask),
-            )
-            args = tuple(
-                put_global(a, NamedSharding(mesh, s))
-                for a, s in zip(args, arg_specs)
-            )
-            return lambda state: jitted(state, args)
-
-        if shard_chunk:
-            raise ValueError(
-                "stoch shard_chunk needs a clause-shard plan layout "
-                "matching the mesh (compile via compile_for_mesh)"
-            )
         step = make_stoch_clause_step("clause")
-        dspecs = _dev_specs(False)
 
         def local(state: StochState, dev: FormulaDevice) -> StochState:
             st = StochState(state.v, state.xl, state.done, state.key[0])
@@ -789,137 +294,26 @@ def make_sharded_stoch_runner(
             return StochState(out.v, out.xl, out.done, out.key[None])
 
         sharded = shard_map(
-            local, mesh=mesh, in_specs=(specs, dspecs), out_specs=specs
+            local, mesh=mesh, in_specs=(specs, DEV_SPECS), out_specs=specs
         )
         jitted = jax.jit(sharded, donate_argnums=0)
-        dev = formula_device(fa)
-        dev = FormulaDevice(*dev[:6], planes=None, span_lo=None, span_bias=None)
         dev = jax.tree.map(
             lambda x, spec: put_global(x, NamedSharding(mesh, spec)),
-            dev,
-            dspecs,
+            formula_device(fa),
+            DEV_SPECS,
         )
         return lambda state: jitted(state, dev)
 
-    inner = make_stoch_chunk_runner(
-        fa, chunk_steps, matmul_dtype=matmul_dtype, donate=False
-    )
-
+    inner = make_stoch_chunk_runner(fa, chunk_steps, donate=False)
     specs = StochState(v=P("traj"), xl=P("traj"), done=P("traj"), key=P("traj"))
-    core = getattr(inner, "_core", None)
-    if core is not None:
-        # planes as jit args + per-(shape, mesh) program cache — the
-        # same constants-bake fix as the ODE DP branch above
-        extra = inner._extra
-        pkey = ("stoch_dp_chunk", inner._cache_key, _mesh_key(mesh))
-
-        def build():
-            def local_core(state: StochState, *ex) -> StochState:
-                st = StochState(state.v, state.xl, state.done, state.key[0])
-                out = core(st, *ex)
-                return StochState(out.v, out.xl, out.done, out.key[None])
-
-            sk = shard_map(
-                local_core,
-                mesh=mesh,
-                in_specs=(specs,) + (P(),) * len(extra),
-                out_specs=specs,
-                check_vma=False,
-            )
-            return jax.jit(lambda state, ex: sk(state, *ex), donate_argnums=0)
-
-        jitted = _cache_program(pkey, build)
-        return lambda state: jitted(state, extra)
 
     def local(state: StochState) -> StochState:
         st = StochState(state.v, state.xl, state.done, state.key[0])
         out = inner(st)
         return StochState(out.v, out.xl, out.done, out.key[None])
 
-    sharded = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(specs,),
-        out_specs=specs,
-        check_vma=False,  # pallas_call outputs carry no vma info
-    )
+    sharded = shard_map(local, mesh=mesh, in_specs=(specs,), out_specs=specs)
     return jax.jit(sharded, donate_argnums=0)
-
-
-def sharded_multi_stoch_supported(
-    fa: FormulaArrays, mesh: Mesh, matmul_dtype: str = "float32",
-    fused: str = "auto",
-) -> bool:
-    """Build-free eligibility twin of sharded_multi_supported for the
-    stoch engine (mirrors make_stoch_chunk_runner's kernel ladder)."""
-    from odesat_tpu.models.stoch import stoch_core_supported
-
-    return mesh.shape.get("clause", 1) == 1 and stoch_core_supported(
-        fa, matmul_dtype=matmul_dtype, fused=fused
-    )
-
-
-def make_sharded_multi_stoch_runner(
-    fa: FormulaArrays,
-    chunk_steps: int,
-    max_chunks: int,
-    mesh: Mesh,
-    matmul_dtype: str = "float32",
-    fused: str = "auto",
-):
-    """Stoch twin of make_sharded_multi_runner for trajectory-only
-    meshes: up to ``max_chunks`` kernel chunks per dispatch inside
-    shard_map, the stop flag pmax-reduced over ``traj`` every chunk.
-    Returns ``state -> (state, steps_advanced)`` or None (scan path or
-    clause mesh — the caller keeps host-paced chunks)."""
-    import jax.numpy as jnp
-
-    from odesat_tpu.models.stoch import StochState, make_stoch_chunk_runner
-
-    if mesh.shape.get("clause", 1) > 1:
-        return None
-    inner = make_stoch_chunk_runner(
-        fa, chunk_steps, fused=fused, matmul_dtype=matmul_dtype, donate=False
-    )
-    core = getattr(inner, "_core", None)
-    if core is None:
-        return None
-    specs = StochState(v=P("traj"), xl=P("traj"), done=P("traj"), key=P("traj"))
-    pkey = ("stoch_dp_multi", inner._cache_key, _mesh_key(mesh))
-
-    def build():
-        n_extra = len(inner._extra)
-
-        def per_shard(state: StochState, n_chunks, *ex):
-            def cond(carry):
-                st, i = carry
-                loc = jnp.any(st.done).astype(jnp.int32)
-                return (i < n_chunks) & ~(jax.lax.pmax(loc, "traj") > 0)
-
-            def body(carry):
-                st, i = carry
-                return core(st, *ex), i + 1
-
-            st0 = StochState(state.v, state.xl, state.done, state.key[0])
-            st, n = jax.lax.while_loop(cond, body, (st0, jnp.int32(0)))
-            out = StochState(st.v, st.xl, st.done, st.key[None])
-            return out, n * chunk_steps
-
-        sk = shard_map(
-            per_shard,
-            mesh=mesh,
-            in_specs=(specs, P()) + (P(),) * n_extra,
-            out_specs=(specs, P()),
-            check_vma=False,
-        )
-        return jax.jit(
-            lambda state, bound, ex: sk(state, bound, *ex), donate_argnums=0
-        )
-
-    jitted = _cache_program(pkey, build)
-    extra = inner._extra
-    bound = jnp.int32(max_chunks)
-    return lambda state: jitted(state, bound, extra)
 
 
 def shard_stoch_inputs(state, mesh: Mesh):

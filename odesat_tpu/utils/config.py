@@ -5,7 +5,7 @@ The reference keeps all knobs as clap CLI flags and in-code constants
 are dataclasses so library users, the CLI, and tests share one config
 surface. Field names mirror the reference flags (`-t` tolerance, `-n`
 steps, `-s` step_size, `-l` learning_rate/zeta, `-r` ctv_ratio, `-b`
-batch_size) plus TPU-specific knobs.
+batch_size) plus accelerator-specific knobs.
 """
 
 from __future__ import annotations
@@ -33,24 +33,21 @@ class ODEConfig:
     steps: Optional[int] = None  # step budget; None => unbounded
     zeta: Optional[float] = None  # learning rate; None => density table
     rigidity: str = "paper"  # "paper" (argmin gate) | "reference" (exact-zero gate), SURVEY.md §2a
-    dtype: str = "float32"  # "float32" | "float64" (reference is f64; TPU wants f32)
-    # per-variable derivative accumulation:
-    #   "auto"        - fused on TPU when the formula supports it, else gather
-    #   "gather"      - variable-major gather+sum (any formula)
-    #   "segment_sum" - scatter-add baseline
-    #   "onehot"      - MXU matmul against the one-hot incidence
-    #   "pallas"      - fused single-step Pallas kernel (onehot-based)
-    #   "fused"       - multi-step Pallas chunk kernel, state in VMEM
-    #                   (12-14x the scan path on v5e for small/medium CNFs)
-    #   "stream"      - multi-step Pallas chunk kernel with the incidence
-    #                   planes + clause memories streamed from HBM
-    #                   (large CNFs the resident kernel can't hold; ~5x
-    #                   the bucketed gather path on preprocessed n=1k)
+    dtype: str = "float32"  # "float32" | "float64" (reference is f64)
+    # per-variable derivative accumulation, resolved by ops/select.py:
+    #   "auto"        - the fused kernel on a GPU when the formula and
+    #                   config suit it, else the scan path below
+    #   "fused"       - multi-step Pallas chunk kernel (Triton route,
+    #                   ops/fused_pallas.py); errors without a GPU
+    #   "gather"      - scan path, variable-major gather+sum (any formula)
+    #   "segment_sum" - scan path, scatter-add
+    #   "onehot"      - scan path, matmul against the one-hot incidence
     dv_strategy: str = "auto"
-    # fused-kernel matmul input precision: "float32" (exact parity) or
-    # "bfloat16" (2x MXU throughput, halves the incidence VMEM footprint;
-    # trajectories diverge at ~1e-3 relative — solutions are still
-    # oracle-verified, so only time-to-solution statistics can shift)
+    # fused-kernel dot operand precision: "float32" (IEEE f32 dots, the
+    # parity path) or "bfloat16" (bf16 operands, f32 accumulation, half
+    # the plane bytes; trajectories diverge at ~1e-3 relative, and
+    # solutions are still oracle-verified, so only time-to-solution
+    # statistics can shift)
     matmul_dtype: str = "float32"
     # adaptive-dt coupling across the trajectory batch:
     #   "per-trajectory" - each trajectory carries its own dt (the
@@ -63,23 +60,6 @@ class ODEConfig:
     #                      through trajectories, which cannot vmap — the
     #                      batch-max is the faithful SPMD rendering)
     dt_mode: str = "per-trajectory"
-    # clause-mesh whole-chunk kernel with the dv all-reduce done INSIDE
-    # the kernel via Pallas remote DMA over ICI (ops/shard_chunk.py) —
-    # needs a power-of-two clause axis.
-    #   "auto" - pick each engine's measured winner for the plan's
-    #            per-shard plane size: always the whole-chunk kernel for
-    #            the ODE (wins 1.10-1.11x at S=1 across the measured
-    #            bracket), large-plane regimes only for stoch
-    #            (ops/shard_chunk.resolve_shard_chunk, brackets from
-    #            tools/bracket_shard_chunk.py)
-    #   "on"   - force the whole-chunk kernel (errors if ineligible)
-    #   "off"  - force the per-step launch path
-    # Legacy bools are accepted (True -> "on", False -> "off"). The
-    # multi-chip collective is interpret-validated on the CPU mesh and
-    # AOT-compiled for mock pod topologies (tools/aot_collective.py);
-    # first hardware runs self-check via the cross-shard consistency
-    # assertion (RESULTS.md known gap #0).
-    shard_chunk: str | bool = "auto"
 
     def resolve_zeta(self, density: float) -> float:
         return self.zeta if self.zeta is not None else zeta_for_density(density)
@@ -101,12 +81,6 @@ class SolverConfig:
     # clauses by width so mixed-width formulas (preprocessing emits wide
     # resolvents) don't pay max clause width on every clause
     bucket: str = "auto"
-    # order clauses (within width buckets) by lowest variable so the
-    # streaming kernel's per-span variable windows tighten on
-    # locally-structured instances (encoder-numbered CNFs): measured 10x
-    # plane-size cut on locality-256 n=4096 random 3-SAT. Clause order is
-    # an internal layout choice — harmless for every other path.
-    window_sort: bool = True
     checkpoint_path: Optional[str] = None  # optional state snapshot between chunks
     checkpoint_every_chunks: int = 0  # 0 => disabled
     resume_from: Optional[str] = None  # resume a solve from a snapshot (.npz)

@@ -6,8 +6,8 @@ numbers useless here, and this module is the one implementation of the
 protocol that fixes both — tools/uf250_tts.py and
 benchmarks/run_benchmarks.py both call it so their numbers agree:
 
-1. **Wall clock swings ±2x with host load** on the remote-dispatch
-   backend. The protocol separates the run into a deterministic
+1. **Wall clock swings with host load** (the host paces chunks and
+   shares its cores). The protocol separates the run into a deterministic
    steps-to-solution (zero measurement noise), a compute TTS derived
    from the separately measured steady-state kernel rate, a dispatch
    share (chunks x measured round-trip latency), and a residual that
@@ -145,7 +145,7 @@ def solve_exact(
             )
         return runner_cache[key][0]
 
-    dev = formula_device(fa, matmul_dtype=ode.matmul_dtype)
+    dev = formula_device(fa)
     state = init_state(fa, batch, key, ode)
     import jax as _jax
 

@@ -425,10 +425,9 @@ def test_cli_solve_no_preprocess(data_dir, capsys):
     assert "Checking if solution vector satisfies formula: true" in captured
 
 
-def test_cli_batch_clause_shards_uses_kernel_path(data_dir, capsys, monkeypatch):
-    """batch --clause-shards must compile via compile_for_mesh so the
-    clause-sharded streaming kernel is reachable (package-review
-    finding: it silently ran the scan fallback)."""
+def test_cli_batch_clause_shards_compiles_for_mesh(data_dir, capsys, monkeypatch):
+    """batch --clause-shards must compile via compile_for_mesh, so the
+    padded clause axis divides across the clause devices."""
     import odesat_tpu.parallel.sharded as sharded
 
     seen = {}
@@ -436,7 +435,7 @@ def test_cli_batch_clause_shards_uses_kernel_path(data_dir, capsys, monkeypatch)
 
     def spy(formula, config, mesh):
         fa = orig(formula, config, mesh)
-        seen["plan"] = fa.shard_plan
+        seen["Mp"] = fa.n_clauses_padded
         return fa
 
     monkeypatch.setattr(sharded, "compile_for_mesh", spy)
@@ -462,27 +461,31 @@ def test_cli_batch_clause_shards_uses_kernel_path(data_dir, capsys, monkeypatch)
         ]
     )
     assert rc == 0
-    assert "plan" in seen and seen["plan"] is not None
+    assert "Mp" in seen and seen["Mp"] % 2 == 0
     assert "Checking if solution vector satisfies formula: true" in capsys.readouterr().out
 
 
-def test_cli_shard_chunk_requires_clause_mesh(data_dir, capsys):
-    """--shard-chunk without a clause axis would silently run the
-    ordinary path; the CLI must reject it instead (the whole-chunk
-    kernel only exists on a clause mesh)."""
+@pytest.mark.parametrize("cmd", ["solve", "inter", "hybrid"])
+def test_cli_explicit_kernel_without_gpu_is_a_clean_error(data_dir, capsys, cmd):
+    """--dv-strategy fused on a host without a GPU exits 2 with a clear
+    message instead of running the kernel in the interpreter."""
+    argv = [cmd, "-f", os.path.join(data_dir, "small.cnf"), "-n", "10",
+            "--dv-strategy", "fused"]
+    if cmd == "inter":
+        argv += ["-b", "4"]
     with pytest.raises(SystemExit) as e:
-        main(
-            [
-                "solve",
-                "-f",
-                os.path.join(data_dir, "small.cnf"),
-                "--shard-chunk",
-                "-n",
-                "10",
-            ]
-        )
+        main(argv)
     assert e.value.code == 2
-    assert "--clause-shards" in capsys.readouterr().err
+    assert "no GPU" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--shard-chunk"], ["--dv-strategy", "stream"],
+                                  ["--dv-strategy", "pallas"]])
+def test_cli_removed_kernel_options_are_rejected(data_dir, flag):
+    """The removed kernel options are gone from the CLI surface."""
+    with pytest.raises(SystemExit) as e:
+        main(["solve", "-f", os.path.join(data_dir, "small.cnf"), "-n", "10"] + flag)
+    assert e.value.code == 2
 
 
 def test_cli_solve_micro_batch_default_and_override(data_dir, capsys):

@@ -7,12 +7,11 @@ import jax
 import numpy as np
 
 from odesat_tpu.cnf import compile_formula, normalize_cnf_variables
+import pytest
+
 from odesat_tpu.models.ode import formula_device, init_state, make_step_fn
-from odesat_tpu.models.stoch import init_stoch_state
 from odesat_tpu.ops.fused_pallas import _JIT_CACHE as FUSED_CACHE
 from odesat_tpu.ops.fused_pallas import make_fused_chunk
-from odesat_tpu.ops.stoch_pallas import make_fused_stoch_chunk, make_stream_stoch_chunk
-from odesat_tpu.ops.stream_pallas import make_stream_chunk
 from odesat_tpu.utils.config import ODEConfig
 from odesat_tpu.utils.generate import random_ksat
 
@@ -54,29 +53,49 @@ def test_fused_cache_not_stale_across_formulas():
     assert np.abs(np.asarray(out_a.v) - np.asarray(out_b.v)).max() > 1e-3
 
 
-def test_stream_cache_not_stale_across_formulas():
-    fa_a, fa_b = _two_same_shape_formulas(seed_a=31, seed_b=32)
-    ode = ODEConfig(step_size=0.02, dv_strategy="gather")
-    fn_a = make_stream_chunk(fa_a, 0.05, ode, 8, interpret=True)
-    fn_b = make_stream_chunk(fa_b, 0.05, ode, 8, interpret=True)
-    state = init_state(fa_a, 8, jax.random.PRNGKey(1), ode)
-    out_a = fn_a(state)
-    out_b = fn_b(state)
-    ref_b = _scan_ref(fa_b, ode, state, 8)
+@pytest.mark.parametrize(
+    "change",
+    [
+        dict(zeta=0.06),
+        dict(chunk_steps=9),
+        dict(ode=ODEConfig(step_size=0.02, rigidity="reference")),
+        dict(ode=ODEConfig(step_size=0.02, matmul_dtype="bfloat16")),
+        dict(ode=ODEConfig(tolerance=1e-3)),
+    ],
+    ids=["zeta", "chunk", "rigidity", "bf16", "adaptive"],
+)
+def test_fused_cache_keys_on_what_the_program_bakes_in(change):
+    """zeta, the chunk length, the rigidity, the dot dtype and the
+    integrator are compile-time constants of the kernel: changing any of
+    them must build a new program, and the same arguments must hit."""
+    fa, _ = _two_same_shape_formulas(seed_a=51, seed_b=52)
+    args = dict(zeta=0.05, ode=ODEConfig(step_size=0.02), chunk_steps=8)
+    first = make_fused_chunk(fa, args["zeta"], args["ode"], args["chunk_steps"], interpret=True)
+    again = make_fused_chunk(fa, args["zeta"], args["ode"], args["chunk_steps"], interpret=True)
+    assert again._core is first._core
+    args.update(change)
+    other = make_fused_chunk(fa, args["zeta"], args["ode"], args["chunk_steps"], interpret=True)
+    assert other._core is not first._core
+
+
+def test_fused_dp_program_shared_across_formulas(interpret_kernel):
+    """On a trajectory-only mesh the sharded fused program is cached per
+    (kernel shape, mesh): a second same-shaped formula reuses it and
+    still gets its own dynamics."""
+    from odesat_tpu.parallel import sharded as sh
+    from odesat_tpu.parallel.mesh import make_mesh
+
+    fa_a, fa_b = _two_same_shape_formulas(seed_a=61, seed_b=62)
+    ode = ODEConfig(step_size=0.02)
+    mesh = make_mesh(8, 1)
+    n0 = len(sh._SHARDED_PROGRAM_CACHE)
+    run_a = sh.make_sharded_chunk_runner(fa_a, 0.05, ode, 6, mesh)
+    run_b = sh.make_sharded_chunk_runner(fa_b, 0.05, ode, 6, mesh)
+    assert len(sh._SHARDED_PROGRAM_CACHE) == n0 + 1
+    state = init_state(fa_a, 16, jax.random.PRNGKey(3), ode)
+    dev_a = formula_device(fa_a)
+    out_b = run_b(jax.tree.map(lambda x: x.copy(), state), formula_device(fa_b))
+    out_a = run_a(jax.tree.map(lambda x: x.copy(), state), dev_a)
+    ref_b = _scan_ref(fa_b, ode, state, 6)
     np.testing.assert_allclose(np.asarray(out_b.v), np.asarray(ref_b.v), rtol=2e-4, atol=2e-5)
     assert np.abs(np.asarray(out_a.v) - np.asarray(out_b.v)).max() > 1e-3
-
-
-def test_stoch_cache_not_stale_across_formulas():
-    fa_a, fa_b = _two_same_shape_formulas(seed_a=41, seed_b=42)
-    state = init_stoch_state(fa_a, 8, jax.random.PRNGKey(2))
-    for make in (make_fused_stoch_chunk, make_stream_stoch_chunk):
-        fn_a = make(fa_a, 30, interpret=True)
-        fn_b = make(fa_b, 30, interpret=True)
-        out_a = make(fa_a, 30, interpret=True)(state)
-        out_b = fn_b(state)
-        # same PRNG stream, different formulas -> different assignments
-        assert (np.asarray(out_a.v) != np.asarray(out_b.v)).any()
-        # and the cached callable for the same formula is deterministic
-        again = fn_a(state)
-        np.testing.assert_array_equal(np.asarray(out_a.v), np.asarray(again.v))

@@ -12,9 +12,13 @@ from odesat_tpu.cnf import evaluate_cnf, normalize_cnf_variables, parse_dimacs, 
 from odesat_tpu.preprocess import preprocess_formula, reconstruct_witness
 from tests.conftest import brute_force_sat, random_formula
 
-pytestmark = pytest.mark.skipif(
-    not native.is_available(), reason="native library unavailable (no g++?)"
-)
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    """Decided when each test runs, never at import: the library builds
+    with g++ on first use."""
+    if not native.is_available():
+        pytest.skip("native library unavailable (no g++?)")
 
 
 def test_native_parse_matches_python(data_dir):

@@ -24,7 +24,12 @@ from odesat_tpu.parallel.sharded import (
 from odesat_tpu.utils.config import ODEConfig, SolverConfig
 
 
-requires_8 = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.fixture
+def requires_8():
+    """The mesh tests lay 8 devices out (conftest forces 8 virtual CPU
+    devices); decided when the test runs, never at import."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 devices")
 
 
 def _inputs(data_dir, config, mesh=None, batch=16):
@@ -40,9 +45,8 @@ def _inputs(data_dir, config, mesh=None, batch=16):
     return fa, state, dev
 
 
-@requires_8
 @pytest.mark.parametrize("step_kind", ["fixed", "adaptive"])
-def test_traj_sharded_matches_single(data_dir, step_kind):
+def test_traj_sharded_matches_single(data_dir, step_kind, requires_8):
     ode = ODEConfig(step_size=0.01 if step_kind == "fixed" else None, tolerance=1e-3)
     config = SolverConfig(ode=ode, chunk_steps=32)
     mesh = make_mesh(8, 1)
@@ -60,9 +64,8 @@ def test_traj_sharded_matches_single(data_dir, step_kind):
     np.testing.assert_array_equal(np.asarray(ref.done), np.asarray(out.done))
 
 
-@requires_8
 @pytest.mark.parametrize("step_kind", ["fixed", "adaptive"])
-def test_clause_sharded_matches_single(data_dir, step_kind):
+def test_clause_sharded_matches_single(data_dir, step_kind, requires_8):
     ode = ODEConfig(step_size=0.01 if step_kind == "fixed" else None, tolerance=1e-3)
     config = SolverConfig(ode=ode, chunk_steps=16, clause_pad=8)
     mesh = make_mesh(2, 4)  # 2-way traj x 4-way clause
@@ -83,8 +86,7 @@ def test_clause_sharded_matches_single(data_dir, step_kind):
     np.testing.assert_array_equal(np.asarray(ref.done), np.asarray(out.done))
 
 
-@requires_8
-def test_simulate_batch_with_mesh_end_to_end(data_dir):
+def test_simulate_batch_with_mesh_end_to_end(data_dir, requires_8):
     formula = parse_dimacs_file(os.path.join(data_dir, "small.cnf"))
     var_mapping, normalized = normalize_cnf_variables(formula)
     mesh = make_mesh(4, 2)
@@ -99,8 +101,7 @@ def test_simulate_batch_with_mesh_end_to_end(data_dir):
     assert evaluate_cnf(mapped, formula)
 
 
-@requires_8
-def test_traj_sharded_fused_matches_single(data_dir):
+def test_traj_sharded_fused_matches_single(data_dir, requires_8, interpret_kernel):
     """The fused Pallas chunk under shard_map (pure DP over 'traj') must
     match the unsharded fused kernel."""
     from odesat_tpu.ops.fused_pallas import make_fused_chunk
@@ -142,41 +143,9 @@ def test_make_pod_mesh():
     assert mesh.shape["traj"] == len(jax.devices())
 
 
-def test_stream_kernel_shards_as_dp():
-    """dv_strategy='stream' on a trajectory-only mesh runs the streaming
-    kernel per device slice (pure DP) and matches the single-device
-    kernel."""
-    import jax
-    import numpy as np
-
-    from odesat_tpu.cnf import compile_formula, normalize_cnf_variables
-    from odesat_tpu.models.ode import formula_device, init_state
-    from odesat_tpu.ops.stream_pallas import make_stream_chunk
-    from odesat_tpu.parallel.mesh import make_mesh
-    from odesat_tpu.parallel.sharded import make_sharded_chunk_runner
-    from odesat_tpu.utils.config import ODEConfig
-    from odesat_tpu.utils.generate import random_ksat
-
-    cpu_mesh8 = make_mesh(8, 1)
-    formula = random_ksat(30, 90, k=3, seed=12)
-    _, normalized = normalize_cnf_variables(formula)
-    fa = compile_formula(normalized)
-    ode = ODEConfig(step_size=0.02, dv_strategy="stream")
-    state = init_state(fa, 64, jax.random.PRNGKey(12), ode)
-
-    runner = make_sharded_chunk_runner(fa, 0.05, ode, 6, cpu_mesh8)
-    out = runner(state, formula_device(fa))
-
-    ref = make_stream_chunk(fa, 0.05, ode, 6, interpret=True)(state)
-    np.testing.assert_allclose(
-        np.asarray(out.v), np.asarray(ref.v), rtol=2e-4, atol=2e-5
-    )
-    np.testing.assert_array_equal(np.asarray(out.done), np.asarray(ref.done))
-
-
 def test_make_pod_mesh_layout_and_solve():
     """Pod-mesh helper: clause axis filled from same-process devices
-    (ICI-local psum), traj axis spans the rest; a sharded solve runs."""
+    (host-local psum), traj axis spans the rest; a sharded solve runs."""
     import jax
 
     from odesat_tpu.parallel.multihost import initialize_distributed, make_pod_mesh
@@ -207,10 +176,10 @@ def test_make_pod_mesh_layout_and_solve():
     assert result.assignment.shape[0] == 16
 
 
-def test_sharded_explicit_kernel_unsupported_raises(data_dir):
+def test_sharded_explicit_kernel_unsupported_raises(data_dir, interpret_kernel):
     """An explicitly forced chunk kernel must raise on the mesh path when
-    the formula can't run it (ADVICE round 1) instead of silently
-    remapping to the scan path."""
+    the formula can't run it instead of silently remapping to the scan
+    path."""
     import pytest
 
     from odesat_tpu.cnf.formula import CNFFormula, Literal
@@ -219,16 +188,15 @@ def test_sharded_explicit_kernel_unsupported_raises(data_dir):
     from odesat_tpu.parallel.sharded import make_sharded_chunk_runner
     from odesat_tpu.utils.config import ODEConfig
 
-    # unit clause => both kernels unsupported
+    # unit clause => kernel unsupported
     formula = CNFFormula(
         [(Literal(0, False),), (Literal(0, True), Literal(1, False))], 2
     )
     fa = _cf(formula)
     mesh = make_mesh(8, 1)
-    for strategy in ("fused", "stream"):
-        ode = ODEConfig(step_size=0.01, dv_strategy=strategy)
-        with pytest.raises(ValueError):
-            make_sharded_chunk_runner(fa, 0.001, ode, 4, mesh)
+    ode = ODEConfig(step_size=0.01, dv_strategy="fused")
+    with pytest.raises(ValueError, match="unit clauses"):
+        make_sharded_chunk_runner(fa, 0.001, ode, 4, mesh)
 
 
 def test_sharded_explicit_kernel_clause_axis_raises(data_dir):
@@ -336,40 +304,6 @@ def test_stoch_clause_sharded_matches_traj_only(data_dir):
     np.testing.assert_array_equal(np.asarray(out1.done), np.asarray(out2.done))
 
 
-def test_stoch_clause_kernel_matches_scan_exactly():
-    """The per-shard Pallas stoch evaluation (plan layout) must match
-    the scan path chain for chain: f32 weight partials are exact
-    integers, and the flip stream is the same jax.random stream."""
-    from odesat_tpu.cnf import normalize_cnf_variables as _norm
-    from odesat_tpu.models.stoch import StochState, init_stoch_state
-    from odesat_tpu.ops.shard_stream import compile_stream_sharded
-    from odesat_tpu.parallel.sharded import (
-        make_sharded_stoch_runner,
-        shard_stoch_inputs,
-    )
-    from odesat_tpu.utils.generate import random_ksat
-
-    formula = random_ksat(96, 420, k=3, seed=12, planted=True)
-    _, normalized = _norm(formula)
-    fa, plan = compile_stream_sharded(normalized, 4)
-
-    key = jax.random.PRNGKey(21)
-    base = init_stoch_state(fa, 8, key)
-    keys = jax.random.split(key, 2)
-
-    mesh_cl = make_mesh(2, 4)
-    st1 = shard_stoch_inputs(StochState(base.v, base.xl, base.done, keys), mesh_cl)
-    out1 = make_sharded_stoch_runner(fa, 12, mesh_cl)(st1)
-
-    mesh_tr = make_mesh(2, 1, devices=jax.devices()[:2])
-    st2 = shard_stoch_inputs(StochState(base.v, base.xl, base.done, keys), mesh_tr)
-    out2 = make_sharded_stoch_runner(fa, 12, mesh_tr)(st2)
-
-    np.testing.assert_array_equal(np.asarray(out1.v), np.asarray(out2.v))
-    np.testing.assert_array_equal(np.asarray(out1.xl), np.asarray(out2.xl))
-    np.testing.assert_array_equal(np.asarray(out1.done), np.asarray(out2.done))
-
-
 def test_stoch_search_on_clause_mesh(data_dir):
     """End-to-end search() over a clause mesh solves a small instance."""
     from odesat_tpu.cnf import normalize_cnf_variables as _norm
@@ -463,28 +397,6 @@ def test_hybrid_mesh_checkpoint_resume(data_dir, tmp_path):
         hybrid_search(normalized, resumed_cfg)
 
 
-def test_shard_plan_with_ineligible_config_raises_targeted_error(data_dir):
-    """A shard-plan formula run with a config the kernel can't take must
-    name the real mismatch, not fall to the scan path's bucket error
-    (round-2 ADVICE)."""
-    import dataclasses
-
-    import pytest
-
-    from odesat_tpu.cnf import normalize_cnf_variables as _norm
-    from odesat_tpu.cnf import parse_dimacs_file
-
-    formula = parse_dimacs_file(os.path.join(data_dir, "hard.cnf"))
-    _, normalized = _norm(formula)
-    mesh = make_mesh(4, 2)
-    config = SolverConfig(ode=ODEConfig(step_size=0.01), chunk_steps=8)
-    fa = compile_for_mesh(normalized, config, mesh)
-    assert fa.shard_plan is not None
-    bad = dataclasses.replace(config.ode, dtype="float64")
-    with pytest.raises(ValueError, match="dtype='float64'"):
-        make_sharded_chunk_runner(fa, 0.001, bad, 8, mesh)
-
-
 def test_shared_dt_on_traj_mesh(data_dir):
     """dt_mode='shared' under GSPMD trajectory sharding: the batch-wide
     max reduces globally, so every trajectory still carries one dt and
@@ -556,14 +468,14 @@ def test_hybrid_clause_mesh_divisibility_precheck():
         hybrid_search(fa, config, mesh=mesh)
 
 
-def test_traj_mesh_device_loop_matches_host_paced(data_dir):
+def test_traj_mesh_device_loop_matches_host_paced(data_dir, interpret_kernel):
     """The trajectory-DP device loop (parallel/sharded.
     make_sharded_multi_runner): one dispatch runs many chunks per device
     with the stop flag pmax-reduced over the traj axis every chunk, so
     every device exits after the same chunk. Must report the same solve,
     steps, and assignments as host-paced chunking (a wall budget
     disables the loop), and build ONE shared program for two same-shaped
-    formulas (planes as jit args). Forced-fused interpret mode."""
+    formulas (planes as jit args). Fused kernel in interpret mode."""
     from odesat_tpu.cnf import normalize_cnf_variables, parse_dimacs_file
     from odesat_tpu.models.ode import simulate_batch
     from odesat_tpu.parallel import sharded as sh
@@ -597,56 +509,7 @@ def test_traj_mesh_device_loop_matches_host_paced(data_dir):
     assert not r3.any_solved and r3.steps == 1024  # UNSAT: full budget
 
 
-def test_traj_mesh_stoch_device_loop_matches_host_paced(data_dir):
-    """Stoch twin of the DP device-loop parity test: same chains, steps,
-    and flip stream as host-paced chunking (the per-device counter-based
-    PRNG is a pure function of state, so chunk composition cannot change
-    it). Forced-fused interpret mode via make_sharded_multi_stoch_runner;
-    the auto path stays host-paced off-TPU (probe returns None)."""
-    import jax.numpy as jnp
-
-    from odesat_tpu.cnf import compile_formula, normalize_cnf_variables, parse_dimacs_file
-    from odesat_tpu.models.stoch import StochState, init_stoch_state
-    from odesat_tpu.parallel.mesh import make_mesh
-    from odesat_tpu.parallel.sharded import (
-        make_sharded_multi_stoch_runner,
-        make_sharded_stoch_runner,
-        shard_stoch_inputs,
-    )
-
-    formula = parse_dimacs_file(os.path.join(data_dir, "hard.cnf"))
-    _, norm = normalize_cnf_variables(formula)
-    fa = compile_formula(norm)
-    mesh = make_mesh(8, 1)
-
-    # auto: no core kernel off-TPU -> caller keeps host-paced chunks
-    assert make_sharded_multi_stoch_runner(fa, 16, 4, mesh) is None
-
-    multi = make_sharded_multi_stoch_runner(fa, 16, 4, mesh, fused="on")
-    assert multi is not None
-    key = jax.random.PRNGKey(5)
-    st = init_stoch_state(fa, 16, key)
-    st = StochState(st.v, st.xl, st.done, jax.random.split(key, 8))
-    st = shard_stoch_inputs(st, mesh)
-    fresh = lambda: jax.tree.map(lambda x: jnp.array(np.asarray(x)), st)  # noqa: E731
-
-    out, steps = multi(fresh())
-    n = int(steps) // 16
-    assert int(steps) == n * 16 and 1 <= n <= 4
-
-    # host-paced reference: same chunk kernel, host loop. The sharded
-    # chunk runner path is the scan one off-TPU, so compose the fused
-    # kernel per chunk through the same shard_map machinery instead.
-    ref = fresh()
-    chunk = make_sharded_multi_stoch_runner(fa, 16, 1, mesh, fused="on")
-    for _ in range(n):
-        ref, adv = chunk(ref)
-        assert int(adv) == 16
-    np.testing.assert_array_equal(np.asarray(out.v), np.asarray(ref.v))
-    np.testing.assert_array_equal(np.asarray(out.done), np.asarray(ref.done))
-
-
-def test_traj_mesh_device_loop_adaptive(data_dir):
+def test_traj_mesh_device_loop_adaptive(data_dir, interpret_kernel):
     """The mesh device loop composes with the ADAPTIVE fused core too
     (two RHS passes + per-trajectory dt inside the kernel, error norm in
     the carry): parity with host-paced chunking on the same mesh."""
@@ -668,3 +531,48 @@ def test_traj_mesh_device_loop_adaptive(data_dir):
     assert r.any_solved == r2.any_solved
     assert r.steps == r2.steps
     np.testing.assert_array_equal(r.assignment, r2.assignment)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+@pytest.mark.parametrize(
+    "family,mesh_shape",
+    [
+        ("uniform", (1, 8)),
+        ("uniform", (2, 4)),
+        ("uniform", (4, 2)),
+        ("mixed_widths", (2, 4)),
+        ("locality", (4, 2)),
+    ],
+)
+def test_clause_mesh_scan_psum_matches_single(family, mesh_shape, mode, requires_8):
+    """The clause mesh runs the scan step under shard_map with dv
+    psum'd across the clause devices (XLA hands the psum to NCCL on
+    GPUs). Against one device from the same state: the psum adds the
+    shards' partial sums in another order, so agreement is to f32
+    rounding grown over 12 steps (~3e-6 measured in adaptive mode), not
+    bitwise."""
+    from odesat_tpu.utils.generate import random_ksat, random_local_ksat
+    from tests.conftest import random_formula
+
+    if family == "uniform":
+        formula = random_ksat(64, 256, k=3, seed=3)
+    elif family == "mixed_widths":
+        formula = random_formula(np.random.default_rng(4), 48, 200, max_width=4, min_width=2)
+    else:
+        formula = random_local_ksat(256, 1000, k=3, locality=32, seed=5)
+    _, normalized = normalize_cnf_variables(formula)
+    ode = ODEConfig(step_size=0.02 if mode == "fixed" else None, tolerance=1e-3)
+    config = SolverConfig(ode=ode, clause_pad=16)
+    mesh = make_mesh(*mesh_shape)
+    fa = compile_for_mesh(normalized, config, mesh)
+    assert fa.n_clauses_padded % mesh_shape[1] == 0
+    state = init_state(fa, 8 * mesh_shape[0], jax.random.PRNGKey(7), ode)
+    dev = formula_device(fa)
+    ref = make_chunk_runner(fa, 0.01, ode, 12, donate=False)(state, dev)
+    st, dv = shard_inputs(jax.tree.map(lambda x: x.copy(), state), dev, mesh)
+    out = make_sharded_chunk_runner(fa, 0.01, ode, 12, mesh)(st, dv)
+    for name in ("v", "xs", "xl", "dt"):
+        np.testing.assert_allclose(
+            np.asarray(getattr(out, name)), np.asarray(getattr(ref, name)), rtol=1e-5, atol=2e-5
+        )
+    np.testing.assert_array_equal(np.asarray(out.done), np.asarray(ref.done))

@@ -267,15 +267,15 @@ def test_multi_chunk_runner_exact_accounting(data_dir):
     np.testing.assert_array_equal(np.asarray(out.done), np.asarray(ref.done))
 
 
-def test_multi_chunk_runner_shares_core_program_across_instances():
-    """When the chunk runner exposes a shape-cached core (fused/stream
-    Pallas kernels via ops/kernelctx.wrap_chunk_runner), the multi-chunk
+def test_multi_chunk_runner_shares_core_program_across_instances(interpret_kernel):
+    """When the chunk runner exposes a shape-cached core (the fused
+    Pallas kernel via ops/kernelctx.wrap_chunk_runner), the multi-chunk
     while program must (a) be built ONCE per static shape — the
     incidence planes ride as jit arguments, so a second same-shaped
     formula reuses the compiled program — and (b) still solve each
     instance against ITS OWN formula (a closure-traced wrapper would
     bake instance 0's planes in as constants: the round-4 TTS cache bug,
-    one level down). Forced-fused in interpret mode off-TPU."""
+    one level down). Fused kernel in interpret mode."""
     import jax.numpy as jnp
 
     from odesat_tpu.cnf import compile_formula
@@ -314,43 +314,7 @@ def test_multi_chunk_runner_shares_core_program_across_instances():
     assert int(steps2) == 16 * 8           # ran the full dispatch
 
 
-def test_multi_stoch_runner_core_and_fallback(data_dir):
-    """The stoch device loop mirrors the ODE one: with a core-exposing
-    kernel (forced fused, interpret mode) it advances in exact inner
-    chunks and matches the plain chunk runner; with the scan path it
-    returns None so the caller keeps host-paced chunks."""
-    import jax.numpy as jnp
-
-    from odesat_tpu.cnf import compile_formula, normalize_cnf_variables, parse_dimacs_file
-    from odesat_tpu.models.stoch import (
-        init_stoch_state,
-        make_multi_stoch_runner,
-        make_stoch_chunk_runner,
-    )
-
-    formula = parse_dimacs_file(os.path.join(data_dir, "hard.cnf"))
-    _, normalized = normalize_cnf_variables(formula)
-    fa = compile_formula(normalized)
-
-    assert make_multi_stoch_runner(fa, 16, 4) is None  # scan path off-TPU
-
-    multi = make_multi_stoch_runner(fa, 16, 4, fused="on")
-    assert multi is not None
-    state0 = init_stoch_state(fa, 8, jax.random.PRNGKey(3))
-    fresh = lambda: jax.tree.map(lambda x: jnp.array(np.asarray(x)), state0)  # noqa: E731
-    out, steps = multi(fresh())
-    n = int(steps) // 16
-    assert int(steps) == n * 16 and 1 <= n <= 4
-
-    chunk = make_stoch_chunk_runner(fa, 16, fused="on", donate=False)
-    ref = fresh()
-    for _ in range(n):
-        ref = chunk(ref)
-    np.testing.assert_array_equal(np.asarray(out.v), np.asarray(ref.v))
-    np.testing.assert_array_equal(np.asarray(out.done), np.asarray(ref.done))
-
-
-def test_multi_chunk_runner_adaptive_core(data_dir):
+def test_multi_chunk_runner_adaptive_core(data_dir, interpret_kernel):
     """The device loop must compose with the ADAPTIVE fused kernel too
     (two RHS passes + per-trajectory dt inside the core): exact
     accounting and state parity with the plain chunk runner."""

@@ -89,20 +89,19 @@ def test_stoch_seed_reproducible(data_dir):
     np.testing.assert_array_equal(r1.assignment, r2.assignment)
 
 
-def test_fused_stoch_chunk_semantics(data_dir):
-    """Fused stoch kernel (interpret mode): weight updates match the scan
-    step exactly; flips are distribution-equal (deterministic cases
-    checked: prob 0 and prob 1)."""
+@pytest.mark.parametrize("batch", [1, 16])
+def test_stoch_chunk_semantics(batch):
+    """One scan-path step: weight updates are exact and flips with
+    probability 0 and 1 are deterministic."""
     from odesat_tpu.cnf.formula import CNFFormula, Literal
-    from odesat_tpu.ops.stoch_pallas import make_fused_stoch_chunk
+    from odesat_tpu.models.stoch import make_stoch_chunk_runner
 
     # (x0) unsatisfied at all-false start -> always flips x0;
     # (-x1) satisfied -> never flips x1
     formula = CNFFormula([(Literal(0),), (Literal(1, True),)], 2)
     fa = compile_formula(formula, clause_pad=128, var_pad=128)
-    state = init_stoch_state(fa, 16, jax.random.PRNGKey(0))
-    fused = make_fused_stoch_chunk(fa, 1, interpret=True)
-    out = fused(state)
+    state = init_stoch_state(fa, batch, jax.random.PRNGKey(0))
+    out = make_stoch_chunk_runner(fa, 1, donate=False)(state)
     v = np.asarray(out.v)
     xl = np.asarray(out.xl)
     assert (v[:, 0] == True).all()  # noqa: E712 — unsat/total == 1
@@ -111,15 +110,14 @@ def test_fused_stoch_chunk_semantics(data_dir):
     assert (xl[:, 1] == 1).all()
 
 
-def test_fused_stoch_solves_small(data_dir):
-    from odesat_tpu.ops.stoch_pallas import make_fused_stoch_chunk
+def test_stoch_chunk_solves_small(data_dir):
+    from odesat_tpu.models.stoch import make_stoch_chunk_runner
 
     formula = parse_dimacs_file(os.path.join(data_dir, "small.cnf"))
     var_mapping, normalized = normalize_cnf_variables(formula)
     fa = compile_formula(normalized)
     state = init_stoch_state(fa, 32, jax.random.PRNGKey(5))
-    fused = make_fused_stoch_chunk(fa, 200, interpret=True)
-    out = fused(state)
+    out = make_stoch_chunk_runner(fa, 200, donate=False)(state)
     done = np.asarray(out.done)
     assert done.any()
     idx = int(np.flatnonzero(done)[0])
@@ -127,19 +125,20 @@ def test_fused_stoch_solves_small(data_dir):
     assert evaluate_cnf(mapped, formula)
 
 
-def test_fused_stoch_freeze(data_dir):
-    """Solved chains stay frozen across further fused chunks."""
-    from odesat_tpu.ops.stoch_pallas import make_fused_stoch_chunk
+def test_stoch_chunk_freeze():
+    """Solved chains stay frozen across further chunks."""
     from odesat_tpu.cnf.formula import CNFFormula, Literal
+    from odesat_tpu.models.stoch import make_stoch_chunk_runner
 
     formula = CNFFormula([(Literal(0, True),)], 1)  # satisfied at all-false
     fa = compile_formula(formula, clause_pad=128, var_pad=128)
     state = init_stoch_state(fa, 8, jax.random.PRNGKey(1))
-    fused = make_fused_stoch_chunk(fa, 3, interpret=True)
-    out = fused(state)
+    run = make_stoch_chunk_runner(fa, 3, donate=False)
+    out = run(state)
     assert np.asarray(out.done).all()
-    out2 = fused(out)
+    out2 = run(out)
     np.testing.assert_array_equal(np.asarray(out2.v), np.asarray(out.v))
+    np.testing.assert_array_equal(np.asarray(out2.xl), np.asarray(out.xl))
 
 
 def test_stoch_pipeline_matches_brute_force_oracle():

@@ -17,7 +17,7 @@ from odesat_tpu.utils.tts import _pow2_ladder, solve_exact, tts_breakdown
 def _ground_truth_steps(fa, ode, batch, key, budget):
     """First step at which done.any(), by single-step replay."""
     runner = make_chunk_runner(fa, ode.resolve_zeta(fa.density), ode, 1, donate=False)
-    dev = formula_device(fa, matmul_dtype=ode.matmul_dtype)
+    dev = formula_device(fa)
     state = init_state(fa, batch, key, ode)
     for step in range(1, budget + 1):
         state = runner(state, dev)
@@ -99,7 +99,7 @@ def test_runner_cache_shared_across_instances(data_dir):
     assert len(cache) == n_compiled  # second instance reuses every runner
 
 
-def test_runner_cache_keyed_by_formula_not_shape():
+def test_runner_cache_keyed_by_formula_not_shape(interpret_kernel):
     """Two same-shaped but DIFFERENT formulas sharing one runner_cache
     must each be solved against their own formula. Regression test: the
     cache was keyed on chunk length alone, and the Pallas chunk runners
@@ -108,7 +108,7 @@ def test_runner_cache_keyed_by_formula_not_shape():
     (caught in round 4 when the uf250 TTS 'distribution' turned out to
     be 20 inits of seed 0). The scan path reads the formula from `dev`
     per call and cannot reproduce this, so the fused kernel (interpret
-    mode off-TPU) is forced; the second formula is UNSAT, where a stale
+    mode) is forced; the second formula is UNSAT, where a stale
     first-formula runner latches a bogus 'solved'."""
     from odesat_tpu.cnf.formula import CNFFormula, Literal
 
@@ -171,15 +171,15 @@ def test_breakdown_arithmetic():
     assert bd["residual_s"] == pytest.approx(0.48)
 
 
-def test_exact_steps_device_path_matches_host_path(data_dir):
+def test_exact_steps_device_path_matches_host_path(data_dir, interpret_kernel):
     """solve_exact's device-loop fast path (one dispatch + deterministic
     replay + bisection) must report the same exact step count and
-    solved trajectory as the host-paced chunk loop — forced-fused in
-    interpret mode so the shape-shared while program engages off-TPU."""
+    solved trajectory as the host-paced chunk loop — the fused kernel in
+    interpret mode, so the shape-shared while program engages."""
     fa, _ = _fa(data_dir)
     key = jax.random.PRNGKey(3)
     fused = ODEConfig(step_size=0.05, dv_strategy="fused")
-    scan = ODEConfig(step_size=0.05)  # auto -> scan off-TPU: host path
+    scan = ODEConfig(step_size=0.05, dv_strategy="gather")  # scan: host path
     dev_res = solve_exact(fa, fused, 8, key, 64, 1024, readout=True)
     host_res = solve_exact(fa, scan, 8, key, 64, 1024, readout=True)
     assert dev_res.solved and host_res.solved
@@ -190,7 +190,7 @@ def test_exact_steps_device_path_matches_host_path(data_dir):
     from odesat_tpu.models.ode import formula_device, init_state, make_chunk_runner
     runner = make_chunk_runner(fa, fused.resolve_zeta(fa.density), fused, 1,
                                donate=False)
-    dv = formula_device(fa, matmul_dtype=fused.matmul_dtype)
+    dv = formula_device(fa)
     st = init_state(fa, 8, key, fused)
     for step in range(1, 1025):
         st = runner(st, dv)
@@ -204,7 +204,7 @@ def test_exact_steps_device_path_matches_host_path(data_dir):
     assert host_res.chunks == -(-host_res.steps // 64)
 
 
-def test_exact_steps_device_path_budget_exhaustion():
+def test_exact_steps_device_path_budget_exhaustion(interpret_kernel):
     """UNSAT under the device path: full budget reported, unsolved, and
     the sub-chunk budget tail still runs (budget not divisible)."""
     from odesat_tpu.cnf.formula import CNFFormula, Literal

@@ -1,11 +1,11 @@
-"""Determinism soak on the real chip: every Pallas kernel must produce
-bit-identical states across repeated same-seed runs.
+"""Determinism soak on the GPU: the fused kernel and the scan path must
+produce bit-identical states across repeated same-seed runs.
 
-The kernels hand-schedule DMA (double-buffered plane streams, span
-read/write pipelines); a missed semaphore wait shows up as run-to-run
-nondeterminism long before it corrupts a verdict. Interpret mode cannot
-catch these races — this soak is the hardware check, re-run after any
-kernel DMA change.
+A missing barrier between a tile's store and its re-read in the fused
+kernel (ops/fused_pallas.py) shows up as run-to-run nondeterminism long
+before it corrupts a verdict, and interpret mode cannot catch it. The
+scan path's ``segment_sum`` accumulator is a float scatter-add, whose
+summation order a GPU may vary; this soak reports whether it does.
 
     python tools/determinism_soak.py [repeats]
 """
@@ -24,7 +24,7 @@ enable_compilation_cache()
 
 from odesat_tpu.cnf import compile_formula, normalize_cnf_variables, parse_dimacs_file
 from odesat_tpu.models.ode import formula_device, init_state
-from odesat_tpu.models.stoch import init_stoch_state
+from odesat_tpu.models.stoch import init_stoch_state, make_stoch_chunk_runner
 from odesat_tpu.utils.config import ODEConfig
 from odesat_tpu.utils.generate import random_ksat
 from odesat_tpu.utils.timing import sync
@@ -61,147 +61,56 @@ def main():
     formula = parse_dimacs_file(os.path.join(HERE, "tests", "data", "hard.cnf"))
     _, aim = normalize_cnf_variables(formula)
     fa_aim = compile_formula(aim)
+    dev_aim = formula_device(fa_aim)
 
     big = random_ksat(900, 3870, k=3, seed=5, planted=True)
     _, bignorm = normalize_cnf_variables(big)
-    fa_big = compile_formula(bignorm, bucket=True, window_sort=True)
+    fa_big = compile_formula(bignorm, bucket=True)
+    dev_big = formula_device(fa_big)
 
-    # one S=1 shard plan + device arrays, shared by every sharded section
-    from odesat_tpu.ops.shard_stream import (
-        compile_stream_sharded,
-        make_single_device_runner,
-    )
+    from odesat_tpu.models.ode import make_chunk_runner, make_multi_chunk_runner
+    from odesat_tpu.ops.fused_pallas import make_fused_chunk
 
-    fa_sh, plan_sh = compile_stream_sharded(bignorm, 1)
-    dev_sh = formula_device(fa_sh, matmul_dtype="bfloat16")
-
+    fields = ("v", "xs", "xl", "dt", "done")
     for mode, kwargs in (("fixed", dict(step_size=0.01)), (
             "adaptive", dict(tolerance=1e-3))):
-        ode = ODEConfig(matmul_dtype="bfloat16", **kwargs)
-
-        from odesat_tpu.ops.fused_pallas import make_fused_chunk
-
-        fn = make_fused_chunk(fa_aim, 0.001, ode, 2000)
-        ok &= run_repeats(
-            f"fused/{mode} (aim100, 2000 steps)",
-            lambda: init_state(fa_aim, 2048, jax.random.PRNGKey(7), ode),
-            fn,
-            repeats,
-            ("v", "xs", "xl", "dt", "done"),
-        )
-
-        from odesat_tpu.ops.stream_pallas import make_stream_chunk
-
-        fn = make_stream_chunk(fa_big, 0.001, ode, 500)
-        ok &= run_repeats(
-            f"stream/{mode} (n=900, 500 steps)",
-            lambda: init_state(fa_big, 512, jax.random.PRNGKey(7), ode),
-            fn,
-            repeats,
-            ("v", "xs", "xl", "dt", "done"),
-        )
-
-        fn = make_single_device_runner(fa_sh, 0.001, ode, 200)
-        ok &= run_repeats(
-            f"shard-stream/{mode} (n=900, 200 steps)",
-            lambda: init_state(fa_sh, 256, jax.random.PRNGKey(7), ode),
-            lambda st: fn(st, dev_sh),
-            repeats,
-            ("v", "xs", "xl", "dt", "done"),
-        )
-
-    # round-3 whole-chunk clause-shard kernels at S=1: the butterfly
-    # degenerates (its collective is interpret-validated on the CPU mesh
-    # and needs multi-chip hardware to run for real), so this validates
-    # the kernel BODY's DMA pipelines — v/dt/done chunk residency, span
-    # read/write streaming, in-kernel Euler epilogues. Odd chunk lengths
-    # compile the parity-flush variant (a no-op at S=1).
-    from types import SimpleNamespace
-
-    from odesat_tpu.models.ode import ODEState
-    from odesat_tpu.ops.shard_chunk import make_shard_chunk_call
-
-    for mode, kwargs in (("fixed", dict(step_size=0.01)), (
-            "adaptive", dict(tolerance=1e-3))):
-        ode = ODEConfig(matmul_dtype="bfloat16", **kwargs)
-        call = make_shard_chunk_call(fa_sh, 0.001, ode, 201)
-
-        def shard_chunk_runner(st, _call=call):
-            v, xs, xl, dt, done = _call(
-                st.v, st.xs, st.xl, st.dt, st.done,
-                dev_sh.planes[0], dev_sh.span_lo[0], dev_sh.span_bias[0],
-                dev_sh.clause_mask,
+        for mm in ("float32", "bfloat16"):
+            ode = ODEConfig(matmul_dtype=mm, **kwargs)
+            fn = make_fused_chunk(fa_aim, 0.001, ode, 2000)
+            ok &= run_repeats(
+                f"fused/{mode}/{mm} (aim100, 2000 steps)",
+                lambda o=ode: init_state(fa_aim, 2048, jax.random.PRNGKey(7), o),
+                fn,
+                repeats,
+                fields,
             )
-            return ODEState(v, xs, xl, dt, done)
+        # the scan path's accumulators: gather sums in a fixed order;
+        # segment_sum is a scatter-add, whose order a GPU may vary
+        for strategy in ("gather", "segment_sum"):
+            ode = ODEConfig(dv_strategy=strategy, **kwargs)
+            fn = make_chunk_runner(fa_big, 0.001, ode, 500, donate=False)
+            ok &= run_repeats(
+                f"scan-{strategy}/{mode} (n=900, 500 steps)",
+                lambda o=ode: init_state(fa_big, 512, jax.random.PRNGKey(7), o),
+                lambda st, _fn=fn: _fn(st, dev_big),
+                repeats,
+                fields,
+            )
 
-        ok &= run_repeats(
-            f"shard-chunk/{mode} (n=900, S=1, 201 steps)",
-            lambda o=ode: init_state(fa_sh, 256, jax.random.PRNGKey(7), o),
-            shard_chunk_runner,
-            repeats,
-            ("v", "xs", "xl", "dt", "done"),
-        )
-
-    from odesat_tpu.ops.stoch_pallas import (
-        make_fused_stoch_chunk,
-        make_stoch_shard_chunk,
-        make_stream_stoch_chunk,
-        stoch_shard_arrays,
-    )
-    import jax.numpy as jnp
-
-    sbias, nsign = stoch_shard_arrays(fa_sh)
-    scall = make_stoch_shard_chunk(fa_sh, 501)
-    sseed = jnp.asarray([12345], dtype=jnp.int32)
-    sargs = (
-        jnp.asarray(plan_sh.planes[0]), jnp.asarray(plan_sh.lo[0]),
-        jnp.asarray(sbias[0]), jnp.asarray(nsign[0]),
-        jnp.asarray(fa_sh.clause_mask),
-    )
-
-    def stoch_shard_runner(st):
-        v, xl, done = scall(st.v, st.xl, st.done, sseed, *sargs)
-        return SimpleNamespace(v=v, xl=xl, done=done)
-
+    sfn = make_stoch_chunk_runner(fa_aim, 2000, donate=False)
     ok &= run_repeats(
-        "stoch-shard-chunk (n=900, S=1, 501 steps)",
-        lambda: SimpleNamespace(
-            v=jnp.zeros((256, fa_sh.n_vars_padded), jnp.float32),
-            xl=jnp.ones((256, fa_sh.n_clauses_padded), jnp.float32),
-            done=jnp.zeros((256,), jnp.bool_),
-        ),
-        stoch_shard_runner,
-        repeats,
-        ("v", "xl", "done"),
-    )
-
-    sfn = make_fused_stoch_chunk(fa_aim, 2000, matmul_dtype="bfloat16")
-    ok &= run_repeats(
-        "stoch-fused (aim100, 2000 steps)",
+        "stoch scan (aim100, 2000 steps)",
         lambda: init_stoch_state(fa_aim, 2048, jax.random.PRNGKey(7)),
         sfn,
         repeats,
         ("v", "xl", "done"),
     )
-    sfn = make_stream_stoch_chunk(fa_big, 500, matmul_dtype="bfloat16")
-    ok &= run_repeats(
-        "stoch-stream (n=900, 500 steps)",
-        lambda: init_stoch_state(fa_big, 512, jax.random.PRNGKey(7)),
-        sfn,
-        repeats,
-        ("v", "xl", "done"),
-    )
 
-    # round-5 device-loop dispatch: the on-device multi-chunk while_loop
-    # around the fused kernels (ODE + stoch) — same-seed repeats must be
-    # bit-identical INCLUDING the traced chunk-bound short-circuit
-    from odesat_tpu.models.ode import make_multi_chunk_runner
-    from odesat_tpu.models.stoch import make_multi_stoch_runner
-
-    ode_dl = ODEConfig(step_size=0.01, matmul_dtype="bfloat16")
-    dev_aim = formula_device(fa_aim, matmul_dtype="bfloat16")
-    multi = make_multi_chunk_runner(fa_aim, 0.001, ode_dl, 250, 8,
-                                    core_only=True)
+    # device-loop dispatch: the on-device multi-chunk while_loop around
+    # the fused kernel — same-seed repeats must be bit-identical
+    # INCLUDING the traced chunk-bound short-circuit
+    ode_dl = ODEConfig(step_size=0.01, dv_strategy="fused")
+    multi = make_multi_chunk_runner(fa_aim, 0.001, ode_dl, 250, 8, core_only=True)
     assert multi is not None
 
     def ode_device_loop(st):
@@ -213,22 +122,7 @@ def main():
         lambda: init_state(fa_aim, 2048, jax.random.PRNGKey(7), ode_dl),
         ode_device_loop,
         repeats,
-        ("v", "xs", "xl", "dt", "done"),
-    )
-
-    smulti = make_multi_stoch_runner(fa_aim, 250, 8, matmul_dtype="bfloat16")
-    assert smulti is not None
-
-    def stoch_device_loop(st):
-        out, _ = smulti(st)
-        return out
-
-    ok &= run_repeats(
-        "device-loop stoch (aim100, 8x250 steps)",
-        lambda: init_stoch_state(fa_aim, 2048, jax.random.PRNGKey(7)),
-        stoch_device_loop,
-        repeats,
-        ("v", "xl", "done"),
+        fields,
     )
 
     print("SOAK", "PASSED" if ok else "FAILED")

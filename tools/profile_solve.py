@@ -27,7 +27,11 @@ def main():
     parser.add_argument("-b", "--batch", type=int, default=8192)
     parser.add_argument("--steps", type=int, default=1000)
     parser.add_argument("--dv-strategy", default="auto")
-    parser.add_argument("-o", "--out", default="/tmp/odesat_profile")
+    parser.add_argument(
+        "-o", "--out",
+        default=os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             ".scratch", "profile"),
+    )
     args = parser.parse_args()
 
     formula = parse_dimacs_file(args.input)
